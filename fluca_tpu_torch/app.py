@@ -1,0 +1,93 @@
+"""Demo application: options-driven lid-driven cavity solver.
+
+Counterpart of fluca_tpu.app (reference fluca/app/main.c): builds
+Mesh+NS from the options database, solves, and reports. Run e.g.:
+
+  python -m fluca_tpu_torch.app -device cuda -cart_grid_x 256 \
+      -cart_grid_y 256 -ns_max_steps 100 -ns_monitor
+
+``-device`` names the torch device (default ``cuda``; a missing card is
+an error, never a silent switch to the CPU). Options whose subsystems
+are not ported yet raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import fluca_tpu_torch
+from fluca_tpu_torch.mesh.cart import CartMesh
+from fluca_tpu_torch.ns.bc import BCType, BoundaryCondition, zero_velocity_bc
+from fluca_tpu_torch.ns.ns import NS
+from fluca_tpu_torch.utils.options import global_options
+
+# options of subsystems still to be ported -> the ROADMAP item that
+# brings them
+_NOT_PORTED = {
+    "checkpoint": "checkpoint I/O (ROADMAP queue 1, item 8)",
+    "load_checkpoint": "checkpoint I/O (ROADMAP queue 1, item 8)",
+    "mesh_cart_create_from_file": "CGNS I/O (ROADMAP queue 1, item 8)",
+    "ns_load_solution_from_file": "CGNS I/O (ROADMAP queue 1, item 8)",
+    "ns_view_solution": "CGNS I/O (ROADMAP queue 1, item 8)",
+    "parallel_grid": "the multi-device path (ROADMAP queue 1, item 10)",
+}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    fluca_tpu_torch.initialize(argv)
+    opts = global_options()
+    for name, what in _NOT_PORTED.items():
+        if opts.has(name):
+            raise NotImplementedError(f"-{name} needs {what}")
+
+    mesh = CartMesh.from_options(opts)
+    wall = zero_velocity_bc()
+    lid = BoundaryCondition(
+        BCType.VELOCITY,
+        velocity=lambda t, xs: tuple(
+            (1.0 + 0.0 * xs[0]) if c == 0 else 0.0 * xs[0]
+            for c in range(mesh.dim)
+        ),
+    )
+    bcs = [wall] * (2 * mesh.dim)
+    bcs[3] = lid  # moving top lid (main.c:52-66)
+
+    ns = NS(
+        mesh,
+        device=opts.get_str("device", "cuda"),
+        rho=400.0,
+        mu=1.0,
+        dt=0.002,
+        max_steps=1000,
+        bcs=bcs,
+        options=opts,
+    )
+    ns.set_from_options()
+    ns.setup()
+
+    from fluca_tpu_torch.io.viewer import (
+        AsciiViewer, create_viewer_from_options,
+    )
+    from fluca_tpu_torch.ns.monitor import set_monitors_from_options
+
+    set_monitors_from_options(
+        ns, opts,
+        writer_factory=lambda: create_viewer_from_options(
+            opts, "ns_monitor_solution_viewer"
+        ) or AsciiViewer(),
+    )
+
+    reason = ns.solve()
+    print(f"done: {reason.name} at step {ns.step_index}, t={ns.t:g}")
+
+    # -log_view: PETSc-style event summary at exit (nspkg.c:30-34)
+    if opts.get_bool("log_view", False):
+        from fluca_tpu_torch.utils.profiling import global_log
+
+        print(global_log.view())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

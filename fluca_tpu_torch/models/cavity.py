@@ -1,0 +1,38 @@
+"""Lid-driven cavity flow (reference:
+fluca/tests/cavity_flow/cavity_flow_2d.c and fluca/app/main.c)."""
+
+from __future__ import annotations
+
+from fluca_tpu_torch.mesh.cart import CartMesh
+from fluca_tpu_torch.ns.bc import BCType, BoundaryCondition, zero_velocity_bc
+from fluca_tpu_torch.ns.ns import NS
+
+
+def setup_cavity_2d(
+    N=256,
+    Re=100.0,
+    dt=1e-2,
+    max_steps=100,
+    lid_speed=1.0,
+    dtype=None,
+    *,
+    device,
+    **ns_kwargs,
+) -> NS:
+    """Re=100, unit square, moving top lid (cavity_flow_2d.c:28-37),
+    on ``device``."""
+    mesh = CartMesh.create((N, N))
+    mesh.set_uniform_coordinates(0.0, 1.0, 0.0, 1.0)
+
+    wall = zero_velocity_bc()
+    lid = BoundaryCondition(
+        BCType.VELOCITY,
+        velocity=lambda t, xs: (lid_speed + 0.0 * xs[0], 0.0 * xs[0]),
+    )
+    ns = NS(
+        mesh, device=device, rho=1.0, mu=1.0 / Re, dt=dt,
+        max_steps=max_steps, dtype=dtype, bcs=[wall, wall, wall, lid],
+        **ns_kwargs,
+    )
+    ns.setup()
+    return ns

@@ -1,0 +1,259 @@
+"""Geometric multigrid for the 2-D pressure-Poisson operator.
+
+Counterpart of fluca_tpu.solvers.mg. The Schur-complement solve
+S p' = rhs with S = -D Gst (the fractional-step limit, reference
+THEORY_GUIDE.md:330-341) is preconditioned by cell-centered geometric
+multigrid with volume-weighted 2:1 coarsening, damped-Jacobi (or
+Chebyshev) smoothing, and an exact coarse solve by a host-precomputed
+pseudo-inverse.
+
+Symmetry: on non-uniform grids D*Gst is symmetric only in the
+cell-volume inner product, so the volume-scaled system
+  Shat p = vol .* (-D Gst p),  rhs_hat = cellvol .* rhs
+is solved; it is symmetric positive semidefinite in the Euclidean inner
+product (pure-Neumann pressure problems keep the constant nullspace,
+handled by mean projection in CG and the pseudo-inverse on the coarse
+level).
+
+Every level's apply, residual and Jacobi sweep goes through the fused
+Poisson 2-D kernel (ops/cuda_stencil.py), whatever the level's size.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from fluca_tpu_torch.mesh.cart import CartMesh
+from fluca_tpu_torch.ns import tables as T_
+from fluca_tpu_torch.ops import cuda_stencil
+from fluca_tpu_torch.ops.banded import compose_axis_stencils
+
+
+@dataclass
+class _Level:
+    mesh: CartMesh
+    coeffs: cuda_stencil.Poisson2DCoeffs  # the Shat kernel's arrays
+    vol: torch.Tensor  # scale * cell volumes (operator row weights)
+    cellvol: torch.Tensor  # plain cell volumes (rhs symmetrization)
+    inv_diag: torch.Tensor  # 1 / diag(Shat)
+    host_dgst: tuple  # per-axis host-f64 D@Gst AxisStencils
+    host_vol: np.ndarray  # scale * cell volumes, host f64
+    cheb_lmax: float | None = None  # Chebyshev smoothing upper bound
+
+
+def _build_level(mesh: CartMesh, axbcs, scale: float, dtype, device) -> _Level:
+    dim = mesh.dim
+    host_dgst = []
+    diag = np.zeros(mesh.cell_shape)
+    for d in range(dim):
+        gst, _, _ = T_.gst_tables(mesh, d, axbcs[d])
+        div = T_.div_tables(mesh, d)
+        dgst = compose_axis_stencils(div, gst)
+        host_dgst.append(dgst)
+        w0 = dgst.as_dict().get(0, np.zeros(mesh.N[d]))
+        shape = [1] * dim
+        shape[d] = -1
+        diag = diag + (-w0).reshape(shape)
+
+    vol = mesh.cell_volumes()
+    host_vol = scale * vol
+    inv_diag = 1.0 / np.where(diag == 0.0, 1.0, scale * vol * diag)
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    coeffs = cuda_stencil.Poisson2DCoeffs.from_host(
+        cuda_stencil.poisson2d_coeffs(mesh, host_dgst, host_vol),
+        mesh.periodic, dtype, device,
+    )
+    return _Level(
+        mesh=mesh,
+        coeffs=coeffs,
+        vol=dev(host_vol),
+        cellvol=dev(vol),
+        inv_diag=dev(inv_diag),
+        host_dgst=tuple(host_dgst),
+        host_vol=host_vol,
+    )
+
+
+def _coarsen_mesh(mesh: CartMesh) -> CartMesh | None:
+    if any(n % 2 != 0 or n < 4 for n in mesh.N):
+        return None
+    cm = CartMesh(N=tuple(n // 2 for n in mesh.N), periodic=mesh.periodic)
+    cm.set_coordinates(*[f[::2] for f in mesh.faces])
+    return cm
+
+
+class PoissonMG:
+    """V-cycle preconditioner for Shat = vol .* (-D Gst) * scale."""
+
+    def __init__(
+        self,
+        mesh: CartMesh,
+        bcs,
+        *,
+        scale: float,
+        dtype,
+        device,
+        nu_pre: int = 2,
+        nu_post: int = 2,
+        omega: float = 0.8,
+        max_levels: int = 16,
+        coarse_size: int = 1024,
+        smoother: str = "jacobi",  # jacobi | chebyshev
+    ):
+        if mesh.dim != 2:
+            raise NotImplementedError(
+                "PoissonMG runs the Poisson 2-D kernel; 3-D waits for the "
+                "Poisson 3-D kernel (ROADMAP queue 2)"
+            )
+        if smoother not in ("jacobi", "chebyshev"):
+            raise ValueError(f"unknown smoother {smoother!r}")
+        device = torch.device(device)
+        axbcs = T_.axis_bcs(mesh, bcs)
+        self.nu_pre, self.nu_post, self.omega = nu_pre, nu_post, omega
+        self.smoother = smoother
+        self.levels: list[_Level] = []
+        m = mesh
+        while True:
+            self.levels.append(_build_level(m, axbcs, scale, dtype, device))
+            if len(self.levels) >= max_levels:
+                break
+            if int(np.prod(m.N)) <= coarse_size:
+                break
+            mc = _coarsen_mesh(m)
+            if mc is None:
+                break
+            m = mc
+
+        # Chebyshev smoothing bounds: lambda_max of the
+        # Jacobi-preconditioned operator per level via power iteration
+        # (setup time); smooth on [lmax/4, 1.05*lmax]
+        if smoother == "chebyshev":
+            rng = np.random.default_rng(12345)
+            for lvl in self.levels:
+                x = torch.as_tensor(
+                    rng.standard_normal(lvl.mesh.cell_shape), dtype=dtype,
+                    device=device,
+                )
+                lmax = 2.0
+                for _ in range(12):
+                    y = lvl.inv_diag * self._apply_level(lvl, x)
+                    nrm = float(torch.linalg.vector_norm(y))
+                    if nrm == 0.0:
+                        break
+                    lmax = nrm / max(float(torch.linalg.vector_norm(x)),
+                                     1e-300)
+                    x = y / nrm
+                lvl.cheb_lmax = 1.05 * lmax
+
+        # coarse-level exact solve via dense pseudo-inverse, assembled
+        # on the host in float64 from the banded tables (Kronecker sums).
+        # Probing the device apply in f32 instead leaves the constant
+        # nullspace's singular value at ~1e-7, which survives pinv's
+        # cutoff and puts O(1e7) entries in the inverse.
+        coarse = self.levels[-1]
+        Nc = coarse.mesh.N
+        n = int(np.prod(Nc))
+        A = np.zeros((n, n))
+        for d, st in enumerate(coarse.host_dgst):
+            Dd = st.to_dense(Nc[d])
+            left = int(np.prod(Nc[:d], initial=1))
+            right = int(np.prod(Nc[d + 1:], initial=1))
+            A += np.kron(np.kron(np.eye(left), Dd), np.eye(right))
+        A = -coarse.host_vol.ravel()[:, None] * A
+        self._coarse_pinv = torch.as_tensor(
+            np.linalg.pinv(A), dtype=dtype, device=device
+        )
+        if device.type == "cuda":
+            # the coarse mat-vec must run in full f32, never TF32
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    # ------------------------------------------------------------------
+    def _apply_level(self, lvl: _Level, p):
+        """Shat p on one level."""
+        return cuda_stencil.poisson2d("apply", p, lvl.coeffs)
+
+    def apply_op(self, p):
+        """Top-level operator Shat (for CG)."""
+        return self._apply_level(self.levels[0], p)
+
+    def scale_rhs(self, r):
+        """Symmetrize the rhs to match Shat: Shat p = cellvol * r
+        solves (-scale * D Gst) p = r. (cellvol, not vol = scale *
+        cellvol: the scale acts on the operator side only, otherwise it
+        cancels and the solve returns p off by 1/scale.)"""
+        return self.levels[0].cellvol * r
+
+    # ------------------------------------------------------------------
+    def _smooth(self, lvl, x, b, n):
+        if self.smoother == "chebyshev":
+            return self._smooth_cheby(lvl, x, b, n)
+        for _ in range(n):
+            x = cuda_stencil.poisson2d(
+                "smooth", x, lvl.coeffs, b, lvl.inv_diag, self.omega
+            )
+        return x
+
+    def _residual(self, lvl, x, b):
+        return cuda_stencil.poisson2d("residual", x, lvl.coeffs, b)
+
+    def _smooth_cheby(self, lvl, x, b, n):
+        """Chebyshev(n) smoothing on [lmax/4, lmax] of the
+        Jacobi-preconditioned operator (three-term recurrence)."""
+        lmax = lvl.cheb_lmax
+        lmin = lmax / 4.0
+        theta = 0.5 * (lmax + lmin)
+        delta = 0.5 * (lmax - lmin)
+        sigma = theta / delta
+        rho = 1.0 / sigma
+        r = self._residual(lvl, x, b)
+        z = lvl.inv_diag * r
+        d = z / theta
+        x = x + d
+        for _ in range(1, n):
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            r = self._residual(lvl, x, b)
+            z = lvl.inv_diag * r
+            d = rho_new * rho * d + 2.0 * rho_new / delta * z
+            rho = rho_new
+            x = x + d
+        return x
+
+    @staticmethod
+    def _restrict(r):
+        """Sum 2x2 fine cells into each coarse cell (adjoint of
+        piecewise-constant prolongation; residuals are vol-weighted so
+        plain summation is the conservative restriction)."""
+        for d in range(r.dim()):
+            shape = r.shape
+            new = shape[:d] + (shape[d] // 2, 2) + shape[d + 1:]
+            r = r.reshape(new).sum(dim=d + 1)
+        return r
+
+    @staticmethod
+    def _prolong(e):
+        for d in range(e.dim()):
+            e = torch.repeat_interleave(e, 2, dim=d)
+        return e
+
+    def _vcycle(self, li, x, b):
+        lvl = self.levels[li]
+        if li == len(self.levels) - 1:
+            xf = torch.matmul(self._coarse_pinv, b.reshape(-1))
+            return xf.reshape(lvl.mesh.cell_shape)
+        x = self._smooth(lvl, x, b, self.nu_pre)
+        r = self._residual(lvl, x, b)
+        rc = self._restrict(r)
+        ec = self._vcycle(li + 1, torch.zeros_like(rc), rc)
+        x = x + self._prolong(ec)
+        x = self._smooth(lvl, x, b, self.nu_post)
+        return x
+
+    def precondition(self, r):
+        """One V-cycle as preconditioner: approximately Shat^{-1} r."""
+        return self._vcycle(0, torch.zeros_like(r), r)
