@@ -1,4 +1,4 @@
-"""CNLinear: linearized Crank-Nicolson NS time stepping (2-D).
+"""CNLinear: linearized Crank-Nicolson NS time stepping (2-D and 3-D).
 
 Counterpart of fluca_tpu.ns.cnlinear (reference NSCNLINEAR,
 fluca/src/ns/impl/linearcn/cnlinear.c + cnlinearcart2d.c:1933-2171,
@@ -144,11 +144,6 @@ class CNLinearSolver:
         dtype=None,
         device="cuda",
     ):
-        if mesh.dim != 2:
-            raise NotImplementedError(
-                "the port's CNLinear step is 2-D; 3-D waits for the 3-D "
-                "operators and kernels (ROADMAP queue 1, item 3)"
-            )
         self.dtype = config.resolve_dtype(dtype)
         self.device = torch.device(device)
         self.cfg = cfg or CNLinearConfig()
@@ -161,6 +156,10 @@ class CNLinearSolver:
         self.mg = PoissonMG(mesh, bcs, scale=dt / rho, dtype=self.dtype,
                             device=self.device)
         self.pin_pressure = not self.ops.has_pressure_outlet
+        # optional momentum body-force hook: f(state0, t) -> cell
+        # vector; added to the momentum RHS as dt * f (the channel's
+        # mean-pressure-gradient forcing)
+        self.body_force = None
 
     # -- state ---------------------------------------------------------
     def zero_state(self) -> dict:
@@ -183,7 +182,7 @@ class CNLinearSolver:
     def _coupled_apply(self, x, Acoeffs):
         ops = self.ops
         v, U, p = x["v"], x["U"], x["p"]
-        Av = ops.apply_A_stacked(v, Acoeffs)
+        Av = ops.apply_A_coeffs(v, Acoeffs)
         Gp = ops.apply_G(p)
         Tv = ops.apply_T(v)
         Rp = ops.apply_R(p)
@@ -216,7 +215,7 @@ class CNLinearSolver:
         inv_diag = tuple(1.0 / d for d in diagA)
 
         def A(v):
-            return ops.apply_A_stacked(v, Acoeffs)
+            return ops.apply_A_coeffs(v, Acoeffs)
 
         def M(r):
             return tuple(inv_diag[c] * r[c] for c in range(ops.dim))
@@ -256,7 +255,7 @@ class CNLinearSolver:
                            device=self.device)
                 for _ in range(self.ops.dim)
             )
-            rs = self.ops.apply_A_stacked(ones, Acoeffs)
+            rs = self.ops.apply_A_coeffs(ones, Acoeffs)
             return tuple(
                 1.0 / torch.where(r == 0, torch.ones_like(r), r) for r in rs
             )
@@ -445,8 +444,13 @@ class CNLinearSolver:
         )
 
         rhs = self._form_rhs(sol0, state["phalf"], t, is_first_step)
+        if self.body_force is not None:
+            f = self.body_force(sol0, t)
+            rhs["v"] = tuple(
+                rhs["v"][c] + self.dt * f[c] for c in range(dim)
+            )
         diagA = ops.diag_A(U0, v0f)
-        Acoeffs = ops.build_momentum_coeffs_stacked(U0, v0f)
+        Acoeffs = ops.build_momentum_operator(U0, v0f)
         res = self._outer_solve(rhs, Acoeffs, diagA)
         x = res.x
         dp = self._project_p(x["p"])

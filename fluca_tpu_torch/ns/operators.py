@@ -4,8 +4,9 @@ Counterpart of fluca_tpu.ns.operators (the reference's assembled
 MATNEST blocks, fluca/src/ns/impl/linearcn/cnlinearcart2d.c assembly).
 Each operator applies precomputed device coefficient bands as
 shifted-slice arithmetic; the momentum block A runs through the fused
-momentum kernel (ops/cuda_stencil.py) on its 26-plane coefficient
-stack.
+momentum kernel (ops/cuda_stencil.py): in 2-D on its 26-plane
+coefficient stack, in 3-D on 27-row per-axis bands and the step's face
+factors (``apply_A_coeffs``).
 
 Field layout conventions (see fluca_tpu_torch.mesh.cart):
   cell scalar  p  : (N0, N1[, N2])
@@ -166,6 +167,15 @@ class NSOperators:
             for d in range(dim)
         ]
 
+        # the 3-D momentum kernel's band arrays (fixed for the run)
+        self.mom_bands3d = None
+        if dim == 3:
+            self.mom_bands3d = cuda_stencil.Momentum3DBands.from_host(
+                cuda_stencil.build_momentum_bands_3d(
+                    mesh, axbcs, self.rho, self.mu, self.dt),
+                mesh.periodic, dtype, self.device,
+            )
+
     def _tensor(self, a):
         return torch.as_tensor(
             np.ascontiguousarray(a), dtype=self.dtype, device=self.device
@@ -289,7 +299,7 @@ class NSOperators:
     def build_momentum_coeffs(self, U0, v0f):
         """Collapse A = I + dt C - (mu dt/2rho) L into dense coefficient
         fields {"self": [c][d]{off: field}, "cross": [c][d]{off: field}}
-        (the reference's dict form; the step consumes its stacked
+        (the reference's dict form; the 2-D step consumes its stacked
         packing, ``build_momentum_coeffs_stacked``)."""
         dim = self.dim
         dt = self.dt
@@ -343,10 +353,8 @@ class NSOperators:
         the fused momentum kernel: 18 tridiagonal planes + 8
         boundary-row +-2 planes (csrc/momentum2d.cu)."""
         if self.dim != 2:
-            raise NotImplementedError(
-                "the stacked momentum coefficients are 2-D; 3-D waits for "
-                "the 3-D momentum kernel (ROADMAP queue 2)"
-            )
+            raise ValueError("the stacked momentum coefficients are 2-D; "
+                             "3-D uses build_momentum_factors_3d")
         C = self.build_momentum_coeffs(U0, v0f)
         zeros = self._zeros(self.mesh.cell_shape)
         planes = []
@@ -361,12 +369,28 @@ class NSOperators:
                     planes.append(table.get(off, zeros))
         return torch.stack(planes)
 
-    def apply_A_stacked(self, v, w_stack):
-        """A v through the fused momentum kernel (its plain version for
-        CPU tensors)."""
-        return cuda_stencil.momentum2d(
-            w_stack, v[0], v[1], self.mesh.periodic
+    def build_momentum_factors_3d(self, U0, v0f):
+        """The step's face factors for the fused 3-D A-apply (a dtype
+        and contiguity pass over U0 and v0f)."""
+        return cuda_stencil.Momentum3DFactors.from_faces(
+            U0, v0f, self.mom_bands3d
         )
+
+    def build_momentum_operator(self, U0, v0f):
+        """The per-step coefficients ``apply_A_coeffs`` takes: the 2-D
+        plane stack or the 3-D face factors."""
+        if self.dim == 2:
+            return self.build_momentum_coeffs_stacked(U0, v0f)
+        return self.build_momentum_factors_3d(U0, v0f)
+
+    def apply_A_coeffs(self, v, coeffs):
+        """A v through the fused momentum kernel (its plain version for
+        CPU tensors), on the 2-D plane stack or the 3-D face factors."""
+        if self.dim == 2:
+            return cuda_stencil.momentum2d(
+                coeffs, v[0], v[1], self.mesh.periodic
+            )
+        return cuda_stencil.momentum3d(self.mom_bands3d, coeffs, v)
 
     def apply_B(self, v):
         """Interpolate cell vector to all faces -> face vector

@@ -1,4 +1,4 @@
-"""Geometric multigrid for the 2-D pressure-Poisson operator.
+"""Geometric multigrid for the 2-D and 3-D pressure-Poisson operator.
 
 Counterpart of fluca_tpu.solvers.mg. The Schur-complement solve
 S p' = rhs with S = -D Gst (the fractional-step limit, reference
@@ -16,7 +16,8 @@ handled by mean projection in CG and the pseudo-inverse on the coarse
 level).
 
 Every level's apply, residual and Jacobi sweep goes through the fused
-Poisson 2-D kernel (ops/cuda_stencil.py), whatever the level's size.
+Poisson 2-D or 3-D kernel (ops/cuda_stencil.py), by the mesh's
+dimension, whatever the level's size.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from fluca_tpu_torch.ops.banded import compose_axis_stencils
 @dataclass
 class _Level:
     mesh: CartMesh
-    coeffs: cuda_stencil.Poisson2DCoeffs  # the Shat kernel's arrays
+    # the Shat kernel's arrays (Poisson2DCoeffs or Poisson3DCoeffs)
+    coeffs: cuda_stencil.Poisson2DCoeffs | cuda_stencil.Poisson3DCoeffs
     vol: torch.Tensor  # scale * cell volumes (operator row weights)
     cellvol: torch.Tensor  # plain cell volumes (rhs symmetrization)
     inv_diag: torch.Tensor  # 1 / diag(Shat)
@@ -65,10 +67,12 @@ def _build_level(mesh: CartMesh, axbcs, scale: float, dtype, device) -> _Level:
     def dev(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
-    coeffs = cuda_stencil.Poisson2DCoeffs.from_host(
-        cuda_stencil.poisson2d_coeffs(mesh, host_dgst, host_vol),
-        mesh.periodic, dtype, device,
-    )
+    if dim == 2:
+        make, cls = cuda_stencil.poisson2d_coeffs, cuda_stencil.Poisson2DCoeffs
+    else:
+        make, cls = cuda_stencil.poisson3d_coeffs, cuda_stencil.Poisson3DCoeffs
+    coeffs = cls.from_host(make(mesh, host_dgst, host_vol), mesh.periodic,
+                           dtype, device)
     return _Level(
         mesh=mesh,
         coeffs=coeffs,
@@ -106,17 +110,17 @@ class PoissonMG:
         coarse_size: int = 1024,
         smoother: str = "jacobi",  # jacobi | chebyshev
     ):
-        if mesh.dim != 2:
-            raise NotImplementedError(
-                "PoissonMG runs the Poisson 2-D kernel; 3-D waits for the "
-                "Poisson 3-D kernel (ROADMAP queue 2)"
-            )
+        if mesh.dim not in (2, 3):
+            raise ValueError(f"PoissonMG takes 2-D or 3-D meshes, not "
+                             f"{mesh.dim}-D")
         if smoother not in ("jacobi", "chebyshev"):
             raise ValueError(f"unknown smoother {smoother!r}")
         device = torch.device(device)
         axbcs = T_.axis_bcs(mesh, bcs)
         self.nu_pre, self.nu_post, self.omega = nu_pre, nu_post, omega
         self.smoother = smoother
+        self._kernel = (cuda_stencil.poisson2d if mesh.dim == 2
+                        else cuda_stencil.poisson3d)
         self.levels: list[_Level] = []
         m = mesh
         while True:
@@ -176,7 +180,7 @@ class PoissonMG:
     # ------------------------------------------------------------------
     def _apply_level(self, lvl: _Level, p):
         """Shat p on one level."""
-        return cuda_stencil.poisson2d("apply", p, lvl.coeffs)
+        return self._kernel("apply", p, lvl.coeffs)
 
     def apply_op(self, p):
         """Top-level operator Shat (for CG)."""
@@ -194,13 +198,13 @@ class PoissonMG:
         if self.smoother == "chebyshev":
             return self._smooth_cheby(lvl, x, b, n)
         for _ in range(n):
-            x = cuda_stencil.poisson2d(
+            x = self._kernel(
                 "smooth", x, lvl.coeffs, b, lvl.inv_diag, self.omega
             )
         return x
 
     def _residual(self, lvl, x, b):
-        return cuda_stencil.poisson2d("residual", x, lvl.coeffs, b)
+        return self._kernel("residual", x, lvl.coeffs, b)
 
     def _smooth_cheby(self, lvl, x, b, n):
         """Chebyshev(n) smoothing on [lmax/4, lmax] of the

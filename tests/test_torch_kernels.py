@@ -9,6 +9,7 @@ coefficients in another order of additions (unit roundoff 1.1e-16);
 a wrong coefficient, offset or boundary read shows at 1e-3 or more."""
 
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -174,6 +175,16 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_stencil, "build_dir", lambda: tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_stencil.build_library()
+
+
+def test_parallel_build_raises_the_failed_compile():
+    """The per-source compiles all run to their end; a failure is raised
+    with that command's output, never skipped."""
+    ok = [sys.executable, "-c", "print('compiled')"]
+    bad = [sys.executable, "-c", "import sys; sys.exit('boom')"]
+    with pytest.raises(RuntimeError, match="boom"):
+        cuda_stencil._run_nvcc([ok, bad, ok])
+    cuda_stencil._run_nvcc([ok, ok])
 
 
 def test_source_hash_tracks_sources():

@@ -165,5 +165,5 @@ def test_momentum_coeffs_and_stack_match(case, stretched):
     assert_close(W, jo.build_momentum_coeffs_stacked(jU, jvf))
     # the stacked apply (the momentum kernel's plain version on the CPU)
     # is the reference's banded A
-    assert_close(to.apply_A_stacked(to_t(v), W),
+    assert_close(to.apply_A_coeffs(to_t(v), W),
                  jo.apply_A(to_j(v), jU, jvf))

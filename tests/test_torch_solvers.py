@@ -107,7 +107,7 @@ def momentum():
     jinv = tuple(1.0 / d for d in jo.diag_A(jU, jv0f))
     tinv = tuple(1.0 / d for d in to.diag_A(tU, tv0f))
     jA = lambda v: jo.apply_A(v, jU, jv0f)  # noqa: E731
-    tA = lambda v: to.apply_A_stacked(v, W)  # noqa: E731
+    tA = lambda v: to.apply_A_coeffs(v, W)  # noqa: E731
     jM = lambda r: tuple(i * x for i, x in zip(jinv, r))  # noqa: E731
     tM = lambda r: tuple(i * x for i, x in zip(tinv, r))  # noqa: E731
     return (jA, jM, tuple(map(jnp.asarray, b))), (tA, tM, tuple(map(torch.tensor, b)))
