@@ -16,6 +16,12 @@
 // on a periodic one (fluca_tpu_torch.ops.banded.shifted); the TPU
 // kernel's in-tile rolls and edge rows are not needed.
 //
+// Instances: f32 and f64, and bf16 (the reduced-precision ABF
+// preconditioner's, where the step casts the plane stack to bf16): bf16
+// planes and fields, float arithmetic, one rounding at the store. The
+// TPU's bf16 instance multiplies the planes by the fields in bf16; this
+// one sums the products in float.
+//
 // What bounds it on an H100: memory traffic. Per cell it reads 26
 // coefficient planes plus u and v and writes two fields (30 streams,
 // the same count as the TPU kernel's cost estimate) for about 56
@@ -39,26 +45,28 @@ momentum2d_kernel(const T* __restrict__ W, const T* __restrict__ u,
                   const T* __restrict__ v, T* __restrict__ out_u,
                   T* __restrict__ out_v, int N0, int N1, int per0,
                   int per1) {
+    using F = fluca::Field<T>;
+    using C = fluca::acc_t<T>;
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
     const int i = blockIdx.y * blockDim.y + threadIdx.y;
     if (i >= N0 || j >= N1) return;
     const size_t n = (size_t)N0 * N1;
     const size_t idx = (size_t)i * N1 + j;
     const T* Wc = W + idx;
-#define FLUCA_W(k) __ldg(Wc + (size_t)(k) * n)
+#define FLUCA_W(k) F::load(Wc + (size_t)(k) * n)
 #define FLUCA_AT(x, di, dj) fluca::load2d(x, i + (di), j + (dj), N0, N1, per0, per1)
 
-    const T uc = __ldg(u + idx);
-    const T vc = __ldg(v + idx);
+    const C uc = F::load(u + idx);
+    const C vc = F::load(v + idx);
 
-    const T ou = FLUCA_W(0) * FLUCA_AT(u, -1, 0) + FLUCA_W(1) * uc +
+    const C ou = FLUCA_W(0) * FLUCA_AT(u, -1, 0) + FLUCA_W(1) * uc +
                  FLUCA_W(2) * FLUCA_AT(u, 1, 0) + FLUCA_W(3) * FLUCA_AT(u, 0, -1) +
                  FLUCA_W(4) * uc + FLUCA_W(5) * FLUCA_AT(u, 0, 1) +
                  FLUCA_W(6) * FLUCA_AT(v, 0, -1) + FLUCA_W(7) * vc +
                  FLUCA_W(8) * FLUCA_AT(v, 0, 1) + FLUCA_W(18) * FLUCA_AT(u, -2, 0) +
                  FLUCA_W(19) * FLUCA_AT(u, 2, 0) + FLUCA_W(20) * FLUCA_AT(u, 0, -2) +
                  FLUCA_W(21) * FLUCA_AT(u, 0, 2);
-    const T ov = FLUCA_W(9) * FLUCA_AT(v, -1, 0) + FLUCA_W(10) * vc +
+    const C ov = FLUCA_W(9) * FLUCA_AT(v, -1, 0) + FLUCA_W(10) * vc +
                  FLUCA_W(11) * FLUCA_AT(v, 1, 0) + FLUCA_W(12) * FLUCA_AT(v, 0, -1) +
                  FLUCA_W(13) * vc + FLUCA_W(14) * FLUCA_AT(v, 0, 1) +
                  FLUCA_W(15) * FLUCA_AT(u, -1, 0) + FLUCA_W(16) * uc +
@@ -67,8 +75,8 @@ momentum2d_kernel(const T* __restrict__ W, const T* __restrict__ u,
                  FLUCA_W(25) * FLUCA_AT(v, 0, 2);
 #undef FLUCA_W
 #undef FLUCA_AT
-    out_u[idx] = ou;
-    out_v[idx] = ov;
+    F::store(out_u + idx, ou);
+    F::store(out_v + idx, ov);
 }
 
 template <typename T>
@@ -85,16 +93,14 @@ int launch(const void* w, const void* u, const void* v, void* out_u,
 
 }  // namespace
 
-extern "C" int fluca_momentum2d_f32(const void* w, const void* u,
-                                    const void* v, void* out_u, void* out_v,
-                                    int N0, int N1, int per0, int per1,
-                                    void* stream) {
-    return launch<float>(w, u, v, out_u, out_v, N0, N1, per0, per1, stream);
-}
+#define FLUCA_MOMENTUM2D_EXPORT(SFX, T)                                     \
+    extern "C" int fluca_momentum2d_##SFX(                                  \
+        const void* w, const void* u, const void* v, void* out_u,           \
+        void* out_v, int N0, int N1, int per0, int per1, void* stream) {    \
+        return launch<T>(w, u, v, out_u, out_v, N0, N1, per0, per1,         \
+                         stream);                                           \
+    }
 
-extern "C" int fluca_momentum2d_f64(const void* w, const void* u,
-                                    const void* v, void* out_u, void* out_v,
-                                    int N0, int N1, int per0, int per1,
-                                    void* stream) {
-    return launch<double>(w, u, v, out_u, out_v, N0, N1, per0, per1, stream);
-}
+FLUCA_MOMENTUM2D_EXPORT(f32, float)
+FLUCA_MOMENTUM2D_EXPORT(f64, double)
+FLUCA_MOMENTUM2D_EXPORT(bf16, __nv_bfloat16)

@@ -25,12 +25,18 @@
 // and for the +-2 rows; the TPU kernel's in-tile rolls, edge planes,
 // P2/M2 planes and roll patches are not needed.
 //
+// Instances: f32 and f64 (everything in one type), and bf16 (the
+// reduced-precision ABF preconditioner's): bf16 v, face arrays and
+// outputs, float bands and arithmetic, one rounding at the store. The
+// step builds the bf16 face arrays from its own U0 and v0f (a cast; the
+// kernel reads the faces in place, so no tile layout is involved).
+//
 // What bounds it on an H100: memory traffic. Per cell it reads 3 v
 // and 12 face factors (the high factor is the next cell's low one, so
 // each face array streams once) and writes 3 outputs: 18 streams, as
 // in the TPU kernel's cost estimate, for ~200 flops, below the card's
 // flop:byte ratio. At 512x256x256 f32 that is 18 x 134 MB = 2.4 GB,
-// >= 0.72 ms at 3.35 TB/s.
+// >= 0.72 ms at 3.35 TB/s (half that in bf16).
 //
 // What the design does about it: one thread per cell computes all
 // three components, so each v neighbour and each factor is loaded
@@ -57,10 +63,10 @@ __host__ __device__ constexpr int conv_row(int var, int lr, int off) {
 
 template <typename T>
 struct Args {
-    const T* band[3];  // (27, N_a)
-    const T* v[3];     // cell fields
-    const T* fu[3];    // U0[a], face_shape(a)
-    const T* fv[9];    // v0f[a][c] at 3*a + c, face_shape(a)
+    const fluca::acc_t<T>* band[3];  // (27, N_a), in the compute type
+    const T* v[3];                   // cell fields
+    const T* fu[3];                  // U0[a], face_shape(a)
+    const T* fv[9];                  // v0f[a][c] at 3*a + c, face_shape(a)
     T* out[3];
     int n[3];
     int per[3];
@@ -69,6 +75,8 @@ struct Args {
 template <typename T>
 __global__ void __launch_bounds__(fluca::kBlockX * fluca::kBlockY)
 momentum3d_kernel(const Args<T> g) {
+    using F = fluca::Field<T>;
+    using C = fluca::acc_t<T>;
     const int k = blockIdx.x * blockDim.x + threadIdx.x;
     const int j = blockIdx.y * blockDim.y + threadIdx.y;
     const int i = blockIdx.z;
@@ -77,17 +85,17 @@ momentum3d_kernel(const Args<T> g) {
     const int pos[3] = {i, j, k};
     const size_t idx = ((size_t)i * N1 + j) * N2 + k;
 
-    T vc[3], acc[3];
+    C vc[3], acc[3];
 #pragma unroll
     for (int e = 0; e < 3; ++e) {
-        vc[e] = __ldg(g.v[e] + idx);
+        vc[e] = F::load(g.v[e] + idx);
         acc[e] = vc[e];
     }
 
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {
         const int n = g.n[ax];
-        const T* B = g.band[ax] + pos[ax];
+        const C* B = g.band[ax] + pos[ax];
         auto band = [&](int r) { return __ldg(B + (size_t)r * n); };
         auto at = [&](int e, int off) {
             int q[3] = {i, j, k};
@@ -104,40 +112,40 @@ momentum3d_kernel(const Args<T> g) {
         const size_t lo = ((size_t)q[0] * d[1] + q[1]) * d[2] + q[2];
         q[ax] = pos[ax] + 1 == nf ? 0 : pos[ax] + 1;
         const size_t hi = ((size_t)q[0] * d[1] + q[1]) * d[2] + q[2];
-        const T FlU = __ldg(g.fu[ax] + lo);
-        const T FrU = __ldg(g.fu[ax] + hi);
+        const C FlU = F::load(g.fu[ax] + lo);
+        const C FrU = F::load(g.fu[ax] + hi);
 
-        T vm[3], vp[3];
+        C vm[3], vp[3];
 #pragma unroll
         for (int e = 0; e < 3; ++e) {
             vm[e] = at(e, -1);
             vp[e] = at(e, 1);
         }
         // normal-variant sums on v_ax, shared by the three components
-        const T nl = band(conv_row(1, 0, -1)) * vm[ax] +
+        const C nl = band(conv_row(1, 0, -1)) * vm[ax] +
                      band(conv_row(1, 0, 0)) * vc[ax] +
                      band(conv_row(1, 0, 1)) * vp[ax];
-        const T nr = band(conv_row(1, 1, -1)) * vm[ax] +
+        const C nr = band(conv_row(1, 1, -1)) * vm[ax] +
                      band(conv_row(1, 1, 0)) * vc[ax] +
                      band(conv_row(1, 1, 1)) * vp[ax];
 
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-            const T Flv = __ldg(g.fv[3 * ax + c] + lo);
-            const T Frv = __ldg(g.fv[3 * ax + c] + hi);
-            T s = band(lap_row(c, -1)) * vm[c] + band(lap_row(c, 0)) * vc[c] +
+            const C Flv = F::load(g.fv[3 * ax + c] + lo);
+            const C Frv = F::load(g.fv[3 * ax + c] + hi);
+            C s = band(lap_row(c, -1)) * vm[c] + band(lap_row(c, 0)) * vc[c] +
                   band(lap_row(c, 1)) * vp[c];
-            const T wm2 = band(lap_row(c, -2));
-            if (wm2 != T(0)) s += wm2 * at(c, -2);
-            const T wp2 = band(lap_row(c, 2));
-            if (wp2 != T(0)) s += wp2 * at(c, 2);
+            const C wm2 = band(lap_row(c, -2));
+            if (wm2 != C(0)) s += wm2 * at(c, -2);
+            const C wp2 = band(lap_row(c, 2));
+            if (wp2 != C(0)) s += wp2 * at(c, 2);
             if (c == ax) {
                 s += (Flv + FlU) * nl + (Frv + FrU) * nr;
             } else {
-                const T tl = band(conv_row(0, 0, -1)) * vm[c] +
+                const C tl = band(conv_row(0, 0, -1)) * vm[c] +
                              band(conv_row(0, 0, 0)) * vc[c] +
                              band(conv_row(0, 0, 1)) * vp[c];
-                const T tr = band(conv_row(0, 1, -1)) * vm[c] +
+                const C tr = band(conv_row(0, 1, -1)) * vm[c] +
                              band(conv_row(0, 1, 0)) * vc[c] +
                              band(conv_row(0, 1, 1)) * vp[c];
                 s += Flv * nl + Frv * nr + FlU * tl + FrU * tr;
@@ -146,7 +154,7 @@ momentum3d_kernel(const Args<T> g) {
         }
     }
 #pragma unroll
-    for (int c = 0; c < 3; ++c) g.out[c][idx] = acc[c];
+    for (int c = 0; c < 3; ++c) F::store(g.out[c] + idx, acc[c]);
 }
 
 // ptrs: b0 b1 b2 | v0 v1 v2 | U0[0..2] | v0f[a][c] (a-major, 9) |
@@ -160,7 +168,8 @@ int launch(const void* const* ptrs, int N0, int N1, int N2, int per0,
         return (int)cudaErrorInvalidConfiguration;
     Args<T> g;
     int m = 0;
-    for (int a = 0; a < 3; ++a) g.band[a] = static_cast<const T*>(ptrs[m++]);
+    for (int a = 0; a < 3; ++a)
+        g.band[a] = static_cast<const fluca::acc_t<T>*>(ptrs[m++]);
     for (int e = 0; e < 3; ++e) g.v[e] = static_cast<const T*>(ptrs[m++]);
     for (int a = 0; a < 3; ++a) g.fu[a] = static_cast<const T*>(ptrs[m++]);
     for (int f = 0; f < 9; ++f) g.fv[f] = static_cast<const T*>(ptrs[m++]);
@@ -181,14 +190,14 @@ static_assert(conv_row(1, 1, 1) == kBandRows - 1, "band row packing");
 
 }  // namespace
 
-extern "C" int fluca_momentum3d_f32(const void* const* ptrs, int N0, int N1,
-                                    int N2, int per0, int per1, int per2,
-                                    void* stream) {
-    return launch<float>(ptrs, N0, N1, N2, per0, per1, per2, stream);
-}
+#define FLUCA_MOMENTUM3D_EXPORT(SFX, T)                                     \
+    extern "C" int fluca_momentum3d_##SFX(const void* const* ptrs, int N0,  \
+                                          int N1, int N2, int per0,         \
+                                          int per1, int per2,               \
+                                          void* stream) {                   \
+        return launch<T>(ptrs, N0, N1, N2, per0, per1, per2, stream);       \
+    }
 
-extern "C" int fluca_momentum3d_f64(const void* const* ptrs, int N0, int N1,
-                                    int N2, int per0, int per1, int per2,
-                                    void* stream) {
-    return launch<double>(ptrs, N0, N1, N2, per0, per1, per2, stream);
-}
+FLUCA_MOMENTUM3D_EXPORT(f32, float)
+FLUCA_MOMENTUM3D_EXPORT(f64, double)
+FLUCA_MOMENTUM3D_EXPORT(bf16, __nv_bfloat16)

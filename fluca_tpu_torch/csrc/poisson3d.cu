@@ -16,13 +16,17 @@
 // Neighbours outside a non-periodic axis read 0 and wrap on a periodic
 // one (fluca_tpu_torch.ops.banded.shifted). Unlike the TPU kernel, it
 // does not rely on zero boundary coefficients to cancel wrapped reads.
-// A0, C1, C2 are (3,N), the H arrays (N), all in the field's dtype; p,
-// b, w and out are (N0,N1,N2), C-contiguous.
+// A0, C1, C2 are (3,N), the H arrays (N), in the type the instance
+// computes in; p, b, w and out are (N0,N1,N2), C-contiguous, in the
+// field type. Instances: f32 and f64, and bf16 (bf16 fields, float
+// coefficients and arithmetic, one rounding at the store), the
+// counterpart of the TPU kernel's bf16 instance under precond_dtype.
 //
 // What bounds it on an H100: memory traffic. Per cell it does about 20
 // (apply) to 24 (smooth) flops against 8 to 16 bytes of f32 field
 // traffic, far below the card's flop:byte ratio; at 512x256x256 one f32
-// field is 134 MB, so an apply moves 268 MB (>= 80 us at 3.35 TB/s).
+// field is 134 MB, so an apply moves 268 MB (>= 80 us at 3.35 TB/s;
+// 134 MB and 40 us in bf16).
 //
 // What the design does about it: one thread per cell reads each field
 // once from device memory. Blocks of 32x8 cells cover one (j,k) plane,
@@ -39,11 +43,17 @@ namespace {
 template <typename T, int MODE>
 __global__ void __launch_bounds__(fluca::kBlockX * fluca::kBlockY)
 poisson3d_kernel(const T* __restrict__ p, const T* __restrict__ b,
-                 const T* __restrict__ w, const T* __restrict__ a0,
-                 const T* __restrict__ c1, const T* __restrict__ c2,
-                 const T* __restrict__ h0, const T* __restrict__ h1,
-                 const T* __restrict__ h2, T* __restrict__ out, int N0,
-                 int N1, int N2, int per0, int per1, int per2, T omega) {
+                 const T* __restrict__ w,
+                 const fluca::acc_t<T>* __restrict__ a0,
+                 const fluca::acc_t<T>* __restrict__ c1,
+                 const fluca::acc_t<T>* __restrict__ c2,
+                 const fluca::acc_t<T>* __restrict__ h0,
+                 const fluca::acc_t<T>* __restrict__ h1,
+                 const fluca::acc_t<T>* __restrict__ h2, T* __restrict__ out,
+                 int N0, int N1, int N2, int per0, int per1, int per2,
+                 fluca::acc_t<T> omega) {
+    using F = fluca::Field<T>;
+    using C = fluca::acc_t<T>;
     const int k = blockIdx.x * blockDim.x + threadIdx.x;
     const int j = blockIdx.y * blockDim.y + threadIdx.y;
     const int i = blockIdx.z;
@@ -52,24 +62,25 @@ poisson3d_kernel(const T* __restrict__ p, const T* __restrict__ b,
 #define FLUCA_P(di, dj, dk) \
     fluca::load3d(p, i + (di), j + (dj), k + (dk), N0, N1, N2, per0, per1, per2)
 
-    const T pc = __ldg(p + idx);
-    const T s0 = __ldg(a0 + i) * FLUCA_P(-1, 0, 0) + __ldg(a0 + N0 + i) * pc +
+    const C pc = F::load(p + idx);
+    const C s0 = __ldg(a0 + i) * FLUCA_P(-1, 0, 0) + __ldg(a0 + N0 + i) * pc +
                  __ldg(a0 + 2 * N0 + i) * FLUCA_P(1, 0, 0);
-    const T s1 = __ldg(c1 + j) * FLUCA_P(0, -1, 0) + __ldg(c1 + N1 + j) * pc +
+    const C s1 = __ldg(c1 + j) * FLUCA_P(0, -1, 0) + __ldg(c1 + N1 + j) * pc +
                  __ldg(c1 + 2 * N1 + j) * FLUCA_P(0, 1, 0);
-    const T s2 = __ldg(c2 + k) * FLUCA_P(0, 0, -1) + __ldg(c2 + N2 + k) * pc +
+    const C s2 = __ldg(c2 + k) * FLUCA_P(0, 0, -1) + __ldg(c2 + N2 + k) * pc +
                  __ldg(c2 + 2 * N2 + k) * FLUCA_P(0, 0, 1);
 #undef FLUCA_P
-    const T hj = __ldg(h1 + j);
-    const T hk = __ldg(h2 + k);
-    const T sp = hj * hk * s0 + __ldg(h0 + i) * (hk * s1 + hj * s2);
+    const C hj = __ldg(h1 + j);
+    const C hk = __ldg(h2 + k);
+    const C sp = hj * hk * s0 + __ldg(h0 + i) * (hk * s1 + hj * s2);
 
     if (MODE == 0) {
-        out[idx] = sp;
+        F::store(out + idx, sp);
     } else if (MODE == 1) {
-        out[idx] = __ldg(b + idx) - sp;
+        F::store(out + idx, F::load(b + idx) - sp);
     } else {
-        out[idx] = pc + omega * __ldg(w + idx) * (__ldg(b + idx) - sp);
+        F::store(out + idx,
+                 pc + omega * F::load(w + idx) * (F::load(b + idx) - sp));
     }
 }
 
@@ -78,6 +89,7 @@ int launch(int mode, const void* p, const void* b, const void* w,
            const void* a0, const void* c1, const void* c2, const void* h0,
            const void* h1, const void* h2, void* out, int N0, int N1, int N2,
            int per0, int per1, int per2, double omega, void* stream) {
+    using C = fluca::acc_t<T>;
     const dim3 block(fluca::kBlockX, fluca::kBlockY);
     const dim3 grid = fluca::grid3d(N0, N1, N2);
     if (grid.y > fluca::kMaxGridYZ || grid.z > fluca::kMaxGridYZ)
@@ -86,14 +98,14 @@ int launch(int mode, const void* p, const void* b, const void* w,
     const T* P = static_cast<const T*>(p);
     const T* B = static_cast<const T*>(b);
     const T* W = static_cast<const T*>(w);
-    const T* A0 = static_cast<const T*>(a0);
-    const T* C1 = static_cast<const T*>(c1);
-    const T* C2 = static_cast<const T*>(c2);
-    const T* H0 = static_cast<const T*>(h0);
-    const T* H1 = static_cast<const T*>(h1);
-    const T* H2 = static_cast<const T*>(h2);
+    const C* A0 = static_cast<const C*>(a0);
+    const C* C1 = static_cast<const C*>(c1);
+    const C* C2 = static_cast<const C*>(c2);
+    const C* H0 = static_cast<const C*>(h0);
+    const C* H1 = static_cast<const C*>(h1);
+    const C* H2 = static_cast<const C*>(h2);
     T* O = static_cast<T*>(out);
-    const T om = static_cast<T>(omega);
+    const C om = static_cast<C>(omega);
     switch (mode) {
         case 0:
             poisson3d_kernel<T, 0><<<grid, block, 0, s>>>(
@@ -118,24 +130,16 @@ int launch(int mode, const void* p, const void* b, const void* w,
 
 }  // namespace
 
-extern "C" int fluca_poisson3d_f32(int mode, const void* p, const void* b,
-                                   const void* w, const void* a0,
-                                   const void* c1, const void* c2,
-                                   const void* h0, const void* h1,
-                                   const void* h2, void* out, int N0, int N1,
-                                   int N2, int per0, int per1, int per2,
-                                   double omega, void* stream) {
-    return launch<float>(mode, p, b, w, a0, c1, c2, h0, h1, h2, out, N0, N1,
-                         N2, per0, per1, per2, omega, stream);
-}
+#define FLUCA_POISSON3D_EXPORT(SFX, T)                                       \
+    extern "C" int fluca_poisson3d_##SFX(                                    \
+        int mode, const void* p, const void* b, const void* w,               \
+        const void* a0, const void* c1, const void* c2, const void* h0,      \
+        const void* h1, const void* h2, void* out, int N0, int N1, int N2,   \
+        int per0, int per1, int per2, double omega, void* stream) {          \
+        return launch<T>(mode, p, b, w, a0, c1, c2, h0, h1, h2, out, N0, N1, \
+                         N2, per0, per1, per2, omega, stream);               \
+    }
 
-extern "C" int fluca_poisson3d_f64(int mode, const void* p, const void* b,
-                                   const void* w, const void* a0,
-                                   const void* c1, const void* c2,
-                                   const void* h0, const void* h1,
-                                   const void* h2, void* out, int N0, int N1,
-                                   int N2, int per0, int per1, int per2,
-                                   double omega, void* stream) {
-    return launch<double>(mode, p, b, w, a0, c1, c2, h0, h1, h2, out, N0, N1,
-                          N2, per0, per1, per2, omega, stream);
-}
+FLUCA_POISSON3D_EXPORT(f32, float)
+FLUCA_POISSON3D_EXPORT(f64, double)
+FLUCA_POISSON3D_EXPORT(bf16, __nv_bfloat16)

@@ -5,10 +5,42 @@
 // wraps around the whole (global) axis.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace fluca {
+
+// The field (storage) type T of a kernel instance and the type it
+// computes in, Field<T>::acc. The f32 and f64 instances compute in
+// their own type. The bf16 instance (the reduced-precision ABF
+// preconditioner's, fluca_tpu/ops/pallas_stencil.py _coef_dtype) reads
+// bf16 fields, takes its coefficient arrays as float, accumulates in
+// float and rounds once, at the store.
+template <typename T>
+struct Field {
+    using acc = T;
+    static __device__ __forceinline__ T load(const T* __restrict__ x) {
+        return __ldg(x);
+    }
+    static __device__ __forceinline__ void store(T* x, T v) { *x = v; }
+};
+
+template <>
+struct Field<__nv_bfloat16> {
+    using acc = float;
+    static __device__ __forceinline__ float load(
+        const __nv_bfloat16* __restrict__ x) {
+        return __bfloat162float(__ushort_as_bfloat16(
+            __ldg(reinterpret_cast<const unsigned short*>(x))));
+    }
+    static __device__ __forceinline__ void store(__nv_bfloat16* x, float v) {
+        *x = __float2bfloat16_rn(v);
+    }
+};
+
+template <typename T>
+using acc_t = typename Field<T>::acc;
 
 __device__ __forceinline__ int wrap_index(int k, int n) {
     k %= n;
@@ -24,21 +56,24 @@ __device__ __forceinline__ bool in_axis(int& k, int n, int per) {
     return true;
 }
 
+// Neighbour reads of a field, in the type the kernel computes in.
 template <typename T>
-__device__ __forceinline__ T load2d(const T* __restrict__ x, int i, int j,
-                                    int N0, int N1, int per0, int per1) {
-    if (!in_axis(i, N0, per0) || !in_axis(j, N1, per1)) return T(0);
-    return __ldg(x + (size_t)i * N1 + j);
+__device__ __forceinline__ acc_t<T> load2d(const T* __restrict__ x, int i,
+                                           int j, int N0, int N1, int per0,
+                                           int per1) {
+    if (!in_axis(i, N0, per0) || !in_axis(j, N1, per1)) return acc_t<T>(0);
+    return Field<T>::load(x + (size_t)i * N1 + j);
 }
 
 template <typename T>
-__device__ __forceinline__ T load3d(const T* __restrict__ x, int i, int j,
-                                    int k, int N0, int N1, int N2, int per0,
-                                    int per1, int per2) {
+__device__ __forceinline__ acc_t<T> load3d(const T* __restrict__ x, int i,
+                                           int j, int k, int N0, int N1,
+                                           int N2, int per0, int per1,
+                                           int per2) {
     if (!in_axis(i, N0, per0) || !in_axis(j, N1, per1) ||
         !in_axis(k, N2, per2))
-        return T(0);
-    return __ldg(x + ((size_t)i * N1 + j) * N2 + k);
+        return acc_t<T>(0);
+    return Field<T>::load(x + ((size_t)i * N1 + j) * N2 + k);
 }
 
 // One thread per cell, the contiguous axis along threadIdx.x so a

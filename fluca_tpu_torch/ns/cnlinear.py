@@ -27,11 +27,18 @@ then updates the pressure by extrapolation (cnlinearcart2d.c:1969-1980):
 The step runs eagerly on the solver's device. The fixed-budget presets
 (``production``, ``production_fast``) read nothing back to the host
 inside a step; the caller's converged check is the one synchronisation.
+
+``precond_dtype="bfloat16"`` runs the ABF preconditioner's inner solves
+(momentum, and with ``precond_scope="both"`` the Schur multigrid) in
+bf16 through the kernels' bf16 instances; the outer Krylov iteration,
+the T/D/G/Gst chains, the coupled residual and the state stay in the
+solver dtype (reference cnlinear.py:108-128, 566-724).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 
@@ -80,6 +87,15 @@ class CNLinearConfig:
     mom_solver: str = "bicgstab"
     schur_solver: str = "cg"
     mom_omega: float = 1.0
+    # run the ABF preconditioner's inner solves in reduced precision
+    # ("bfloat16", or "float32" under a float64 solve). The outer
+    # iteration is flexible, so an inexact M changes the contraction
+    # rate, not the converged answer. Fixed-budget configs only. None:
+    # the inner solves run in the solver dtype.
+    precond_dtype: str | None = None
+    # which inner solves run in precond_dtype: "both", or "mom" (the
+    # Schur solve stays in the solver dtype)
+    precond_scope: str = "both"
 
     @classmethod
     def production(cls, outer=3, mom=8, schur=6):
@@ -156,6 +172,9 @@ class CNLinearSolver:
         self.mg = PoissonMG(mesh, bcs, scale=dt / rho, dtype=self.dtype,
                             device=self.device)
         self.pin_pressure = not self.ops.has_pressure_outlet
+        # the precond_dtype multigrid twin, built on first use
+        # (_pre_resources)
+        self._pre16 = None
         # optional momentum body-force hook: f(state0, t) -> cell
         # vector; added to the momentum RHS as dt * f (the channel's
         # mean-pressure-gradient forcing)
@@ -192,22 +211,25 @@ class CNLinearSolver:
             "p": ops.apply_D(U),
         }
 
-    def _pressure_mean(self, p):
-        """Volume-weighted mean of p, accumulated in at least float32
-        (the reference's rule for reduced-precision fields,
+    def _pressure_mean(self, p, mg=None):
+        """Volume-weighted mean of p with the volumes of ``mg`` (the
+        solver's hierarchy if None): the product rounded in the
+        hierarchy's dtype, the sums in at least float32 (the
+        reference's rule for reduced-precision fields,
         cnlinear.py:487-494)."""
-        vol = self.mg.levels[0].vol
+        vol = (mg or self.mg).levels[0].vol
         acc = torch.promote_types(p.dtype, torch.float32)
         return (torch.sum((vol * p).to(acc)) / torch.sum(vol.to(acc))).to(
             p.dtype
         )
 
-    def _project_p(self, p):
+    def _project_p(self, p, mg=None):
         """Remove the constant-pressure nullspace component (reference
-        attaches a constant nullspace to S, abfpc.c:170-179)."""
+        attaches a constant nullspace to S, abfpc.c:170-179), weighted
+        by the volumes of ``mg`` (the solver's hierarchy if None)."""
         if not self.pin_pressure:
             return p
-        return p - self._pressure_mean(p)
+        return p - self._pressure_mean(p, mg)
 
     def _solve_momentum(self, rhs_v, Acoeffs, diagA):
         ops = self.ops
@@ -261,12 +283,15 @@ class CNLinearSolver:
             )
         raise ValueError(f"unknown ainv type {kind!r}")
 
-    def _solve_schur(self, rhs_p, ainv1=None):
+    def _solve_schur(self, rhs_p, ainv1=None, mg=None):
         """Solve Stilde p = rhs with CG+MG (Atilde1 = I, symmetric),
         MG-Richardson ('vcycle'), or FGMRES+MG (diag/rowsum,
-        nonsymmetric Stilde = D T (I - Atilde1^-1) G - D Gst)."""
-        mg = self.mg
-        proj = self._project_p if self.pin_pressure else None
+        nonsymmetric Stilde = D T (I - Atilde1^-1) G - D Gst).
+
+        ``mg`` replaces the solver's hierarchy (the precond_dtype twin);
+        the constant-nullspace projection then uses its volumes."""
+        mg = mg or self.mg
+        proj = partial(self._project_p, mg=mg) if self.pin_pressure else None
         cfg = self.cfg
         if ainv1 is None and cfg.schur_solver == "vcycle":
             # schur_maxiter V-cycle Richardson iterations; the constant
@@ -305,11 +330,94 @@ class CNLinearSolver:
         ).x
         return proj(p) if proj else p
 
-    def _abf_apply(self, r, Acoeffs, diagA):
-        """PCApply_ABF (abfpc.c:48-111)."""
+    # -- reduced-precision preconditioner ------------------------------
+    def _pre_resources(self):
+        """The precond_dtype resources, built once: its dtype and, for
+        scope "both", a PoissonMG hierarchy in that dtype (None for
+        "mom"). None when precond_dtype is off. Raises for
+        tolerance-based inner solves, which the reduced-precision path
+        does not run (reference cnlinear.py:566-635)."""
+        cfg = self.cfg
+        if cfg.precond_dtype is None:
+            return None
+        if cfg.precond_scope not in ("both", "mom"):
+            raise ValueError(f"unknown precond_scope {cfg.precond_scope!r}")
+        if not (
+            cfg.converged_skip
+            and cfg.mom_rtol <= _FIXED_BUDGET_RTOL
+            and (cfg.precond_scope == "mom"
+                 or cfg.schur_rtol <= _FIXED_BUDGET_RTOL)
+        ):
+            raise ValueError(
+                "precond_dtype requires a fixed-budget config "
+                "(converged_skip=True with inner rtols <= 1e-20, e.g. "
+                "CNLinearConfig.production()); tolerance-based inner "
+                "solves cannot run in reduced precision"
+            )
+        pdt = config.resolve_dtype(cfg.precond_dtype)
+        want_mg = cfg.precond_scope == "both"
+        pre = self._pre16
+        if pre is None or pre["dtype"] != pdt \
+                or (pre["mg"] is not None) != want_mg:
+            pre = {"dtype": pdt, "mg": None}
+            if want_mg:
+                pre["mg"] = PoissonMG(
+                    self.mesh, self.ops.bcs, scale=self.dt / self.rho,
+                    dtype=pdt, device=self.device,
+                )
+            self._pre16 = pre
+        return pre
+
+    def _precond_ctx(self, Acoeffs, diagA, U0, v0f):
+        """The step's reduced-precision context, or None: diag(A) cast
+        once, and the A-apply's coefficients in that dtype: in 2-D the
+        plane stack cast once, in 3-D the factors built from (U0, v0f)
+        in that dtype, never the solver-dtype factors cast (reference
+        cnlinear.py:637-683). ``apply_A_coeffs`` takes either as it
+        is."""
+        res = self._pre_resources()
+        if res is None:
+            return None
+        pdt = res["dtype"]
+        ops = self.ops
+        if ops.dim == 2:
+            Ac = Acoeffs.to(pdt)
+        else:
+            Ac = ops.build_momentum_factors_3d(U0, v0f, pdt)
+        return {
+            "dtype": pdt,
+            "mg": res["mg"],
+            "diagA": tuple(d.to(pdt) for d in diagA),
+            "Acoeffs": Ac,
+        }
+
+    def _abf_apply(self, r, Acoeffs, diagA, pre=None):
+        """PCApply_ABF (abfpc.c:48-111).
+
+        ``pre`` (from _precond_ctx): the inner solves in reduced
+        precision; the T/D/G/Gst chains and the result stay in the
+        solver dtype (reference cnlinear.py:685-724)."""
         ops = self.ops
         ainv1 = self._ainv_diag(self.cfg.schur_ainv, Acoeffs, diagA)
         ainv2 = self._ainv_diag(self.cfg.upper_ainv, Acoeffs, diagA)
+        if pre is not None and ainv1 is None and ainv2 is None:
+            pdt = pre["dtype"]
+            vstar = self._solve_momentum(
+                tuple(x.to(pdt) for x in r["v"]), pre["Acoeffs"], pre["diagA"]
+            )
+            vstar = tuple(x.to(self.dtype) for x in vstar)
+            Tv = ops.apply_T(vstar)
+            Ustar = tuple(r["U"][d] + Tv[d] for d in range(ops.dim))
+            rp = r["p"] - ops.apply_D(Ustar)
+            if pre["mg"] is None:
+                p = self._solve_schur(rp)
+            else:
+                p = self._solve_schur(rp.to(pdt), mg=pre["mg"]).to(self.dtype)
+            Gp = ops.apply_G(p)
+            Gstp = ops.apply_Gst(p)
+            v = tuple(vstar[c] - Gp[c] for c in range(ops.dim))
+            U = tuple(Ustar[d] - Gstp[d] for d in range(ops.dim))
+            return {"v": v, "U": U, "p": p}
         vstar = self._solve_momentum(r["v"], Acoeffs, diagA)
         Tv = ops.apply_T(vstar)
         Ustar = tuple(r["U"][d] + Tv[d] for d in range(ops.dim))
@@ -379,14 +487,15 @@ class CNLinearSolver:
         return {"v": momrhs, "U": interprhs, "p": contrhs}
 
     # -- one time step -------------------------------------------------
-    def _outer_solve(self, rhs, Acoeffs, diagA) -> KrylovResult:
+    def _outer_solve(self, rhs, Acoeffs, diagA, pre=None) -> KrylovResult:
+        """The coupled solve; ``pre`` is the reduced-precision context."""
         cfg = self.cfg
 
         def A(x):
             return self._coupled_apply(x, Acoeffs)
 
         def M(r):
-            return self._abf_apply(r, Acoeffs, diagA)
+            return self._abf_apply(r, Acoeffs, diagA, pre)
 
         if cfg.solve_type == "fsm":
             # classical fractional step: one ABF application is the
@@ -451,7 +560,8 @@ class CNLinearSolver:
             )
         diagA = ops.diag_A(U0, v0f)
         Acoeffs = ops.build_momentum_operator(U0, v0f)
-        res = self._outer_solve(rhs, Acoeffs, diagA)
+        pre = self._precond_ctx(Acoeffs, diagA, U0, v0f)
+        res = self._outer_solve(rhs, Acoeffs, diagA, pre)
         x = res.x
         dp = self._project_p(x["p"])
 

@@ -167,14 +167,32 @@ class NSOperators:
             for d in range(dim)
         ]
 
-        # the 3-D momentum kernel's band arrays (fixed for the run)
+        # the 3-D momentum kernel's band arrays (fixed for the run), and
+        # their twin in another coefficient dtype, built on first use
+        # (momentum_bands_3d)
         self.mom_bands3d = None
+        self._mom_bands3d_twin = None
         if dim == 3:
-            self.mom_bands3d = cuda_stencil.Momentum3DBands.from_host(
-                cuda_stencil.build_momentum_bands_3d(
-                    mesh, axbcs, self.rho, self.mu, self.dt),
-                mesh.periodic, dtype, self.device,
-            )
+            self.mom_bands3d = self._momentum_bands(dtype)
+
+    def _momentum_bands(self, dtype):
+        return cuda_stencil.Momentum3DBands.from_host(
+            cuda_stencil.build_momentum_bands_3d(
+                self.mesh, self.axbcs, self.rho, self.mu, self.dt),
+            self.mesh.periodic, dtype, self.device,
+        )
+
+    def momentum_bands_3d(self, dtype):
+        """The 3-D momentum kernel's bands for fields of ``dtype``, in
+        its ``coef_dtype``: ``mom_bands3d`` where that is the solver
+        dtype, else a twin built once (float32 bands for the bf16 or
+        float32 preconditioner of a float64 solve)."""
+        cdt = cuda_stencil.coef_dtype(dtype)
+        if cdt == self.dtype:
+            return self.mom_bands3d
+        if self._mom_bands3d_twin is None:  # the other of f32 and f64
+            self._mom_bands3d_twin = self._momentum_bands(cdt)
+        return self._mom_bands3d_twin
 
     def _tensor(self, a):
         return torch.as_tensor(
@@ -369,11 +387,13 @@ class NSOperators:
                     planes.append(table.get(off, zeros))
         return torch.stack(planes)
 
-    def build_momentum_factors_3d(self, U0, v0f):
+    def build_momentum_factors_3d(self, U0, v0f, dtype=None):
         """The step's face factors for the fused 3-D A-apply (a dtype
-        and contiguity pass over U0 and v0f)."""
+        and contiguity pass over U0 and v0f), in ``dtype`` (the solver
+        dtype if None), for the bands ``momentum_bands_3d(dtype)``."""
+        dtype = self.dtype if dtype is None else dtype
         return cuda_stencil.Momentum3DFactors.from_faces(
-            U0, v0f, self.mom_bands3d
+            U0, v0f, self.momentum_bands_3d(dtype), dtype
         )
 
     def build_momentum_operator(self, U0, v0f):
@@ -385,12 +405,15 @@ class NSOperators:
 
     def apply_A_coeffs(self, v, coeffs):
         """A v through the fused momentum kernel (its plain version for
-        CPU tensors), on the 2-D plane stack or the 3-D face factors."""
+        CPU tensors), on the 2-D plane stack or the 3-D face factors,
+        whose dtype picks the bands (``momentum_bands_3d``)."""
         if self.dim == 2:
             return cuda_stencil.momentum2d(
                 coeffs, v[0], v[1], self.mesh.periodic
             )
-        return cuda_stencil.momentum3d(self.mom_bands3d, coeffs, v)
+        return cuda_stencil.momentum3d(
+            self.momentum_bands_3d(coeffs.U0[0].dtype), coeffs, v
+        )
 
     def apply_B(self, v):
         """Interpolate cell vector to all faces -> face vector

@@ -16,11 +16,20 @@ first use with ``nvcc`` for ``sm_90a`` (one process per source, in
 parallel) into a shared library with a plain C interface, under ``build/fluca_tpu_torch/<source hash>/`` at the root
 of the checkout, and loaded with ctypes.
 
+Each kernel has three instances: float32 and float64 (fields,
+coefficients and arithmetic in one type), and bfloat16 for the
+reduced-precision ABF preconditioner (``precond_dtype``): bf16 fields,
+coefficient arrays and arithmetic in ``coef_dtype`` (float32), one
+rounding at the store, as the TPU kernels' bf16 instances
+(``pallas_stencil._coef_dtype``).
+
 Each kernel has a plain PyTorch version of the same function beside
-it, built from ``shifted`` on the same coefficient arrays. A wrapper
-takes the plain version only for tensors on the CPU; for a CUDA tensor
-it launches the kernel or raises. Each wrapper counts its kernel
-launches in ``launches``.
+it, built from ``shifted`` on the same coefficient arrays, with the
+same bf16 semantics (fields upcast to the coefficients' dtype, result
+rounded to the fields'). A wrapper takes the plain version only for
+tensors on the CPU; for a CUDA tensor it launches the kernel or
+raises. Each wrapper counts its kernel launches in ``launches``, and
+by instance in ``launches_by_dtype``.
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ NVCC_FLAGS = (
 )
 LIB_NAME = "libfluca_tpu_torch_kernels.so"
 
-_DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+                 torch.bfloat16: "bf16"}
 POISSON_MODES = {"apply": 0, "residual": 1, "smooth": 2}
 # The CUDA grid's y extent (one block row per 8 rows of the field).
 _MAX_ROWS = 65535 * 8
@@ -156,22 +166,41 @@ def _check_cuda(name: str, err: int) -> None:
 # argument checks shared by the wrappers
 # ----------------------------------------------------------------------
 
-def _check_tensors(name, ref, tensors):
-    """Every tensor on ``ref``'s device, in its dtype, contiguous."""
+def coef_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of a kernel instance's coefficient arrays and
+    arithmetic for fields of ``dtype``: float32 for fields narrower than
+    32 bits (bf16), else the field dtype (pallas_stencil._coef_dtype)."""
+    return torch.float32 if dtype.itemsize < 4 else dtype
+
+
+def _check_tensors(name, ref, fields, coeffs=None):
+    """Every tensor on ``ref``'s device and contiguous; the fields in
+    ``ref``'s dtype, the coefficient arrays in its ``coef_dtype``."""
     if ref.dtype not in _DTYPE_SUFFIX:
         raise TypeError(f"{name}: dtype {ref.dtype} not supported "
-                        f"(float32 or float64)")
-    for label, t in tensors.items():
+                        f"(float32, float64 or bfloat16)")
+    want = {label: (t, ref.dtype) for label, t in fields.items()}
+    want.update((label, (t, coef_dtype(ref.dtype)))
+                for label, t in (coeffs or {}).items())
+    for label, (t, dtype) in want.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: {label} is not a tensor")
         if t.device != ref.device:
             raise ValueError(f"{name}: {label} on {t.device}, "
                              f"expected {ref.device}")
-        if t.dtype != ref.dtype:
+        if t.dtype != dtype:
             raise TypeError(f"{name}: {label} is {t.dtype}, "
-                            f"expected {ref.dtype}")
+                            f"expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} is not contiguous")
+
+
+def _check_coeff_dtype(name, t):
+    """Coefficient arrays are float32 or float64: no instance takes
+    bf16 coefficients."""
+    if t.dtype not in _DTYPE_SUFFIX or coef_dtype(t.dtype) != t.dtype:
+        raise TypeError(f"{name}: coefficients in {t.dtype}, expected "
+                        f"float32 or float64")
 
 
 def _launch_target(name, x) -> str:
@@ -189,6 +218,30 @@ def _launch_target(name, x) -> str:
 
 def _stream_ptr(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+class _Kernel:
+    """Launch bookkeeping shared by the wrappers: the C entry point of
+    the fields' instance, the error check, and the launch counts."""
+
+    name = ""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.launches_by_dtype = dict.fromkeys(_DTYPE_SUFFIX.values(), 0)
+
+    @property
+    def launches(self) -> int:
+        """The launches of all instances."""
+        return sum(self.launches_by_dtype.values())
+
+    def _launch(self, dtype, *args) -> None:
+        sfx = _DTYPE_SUFFIX[dtype]
+        fn = getattr(load_library(), f"fluca_{self.name}_{sfx}")
+        _check_cuda(self.name, fn(*args))
+        self.launches_by_dtype[sfx] += 1
 
 
 # ----------------------------------------------------------------------
@@ -253,7 +306,8 @@ def poisson2d_coeffs(mesh, host_dgst, host_vol):
 @dataclass(frozen=True)
 class Poisson2DCoeffs:
     """Device copies of the ``poisson2d_coeffs`` arrays for one grid
-    level, with the level's periodicity."""
+    level, with the level's periodicity, in a coefficient dtype (float32
+    or float64)."""
 
     rx: torch.Tensor  # (3, N0)
     ry: torch.Tensor  # (N0,)
@@ -268,6 +322,7 @@ class Poisson2DCoeffs:
                             device=device)
             for a in arrays
         )
+        _check_coeff_dtype("poisson2d coefficients", rx)
         return cls(rx, ry, cy, cyb, (bool(periodic[0]), bool(periodic[1])))
 
     @property
@@ -275,12 +330,20 @@ class Poisson2DCoeffs:
         return (self.ry.shape[0], self.cy.shape[0])
 
 
+def _upcast(dtype, *xs):
+    """The tensors among ``xs`` in ``dtype`` (None stays None)."""
+    return tuple(None if x is None else x.to(dtype) for x in xs)
+
+
 def poisson2d_plain(mode, p, c: Poisson2DCoeffs, b=None, w=None,
                     omega=0.0):
     """Plain PyTorch version of the Poisson 2-D kernel (same function,
-    same coefficient arrays)."""
+    same coefficient arrays): computed in the coefficients' dtype,
+    returned in the fields'."""
     N0, N1 = p.shape
     per0, per1 = c.periodic
+    out_dtype = p.dtype
+    p, b, w = _upcast(c.rx.dtype, p, b, w)
     x = (
         c.rx[0][:, None] * shifted(p, 0, -1, N0, per0)
         + c.rx[1][:, None] * p
@@ -291,7 +354,11 @@ def poisson2d_plain(mode, p, c: Poisson2DCoeffs, b=None, w=None,
         + c.cyb[1][None, :] * p
         + c.cyb[2][None, :] * shifted(p, 1, 1, N1, per1)
     )
-    sp = x + y
+    return _poisson_mode(mode, x + y, p, b, w, omega).to(out_dtype)
+
+
+def _poisson_mode(mode, sp, p, b, w, omega):
+    """Sp | b - Sp | p + omega w (b - Sp), by mode."""
     if mode == "apply":
         return sp
     if mode == "residual":
@@ -299,13 +366,10 @@ def poisson2d_plain(mode, p, c: Poisson2DCoeffs, b=None, w=None,
     return p + omega * w * (b - sp)
 
 
-class Poisson2DKernel:
+class Poisson2DKernel(_Kernel):
     """Wrapper of the Poisson 2-D kernel (csrc/poisson2d.cu)."""
 
     name = "poisson2d"
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, mode, p, c: Poisson2DCoeffs, b=None, w=None,
                  omega=0.0):
@@ -315,16 +379,15 @@ class Poisson2DKernel:
                 or c.cyb.shape != (3, N1):
             raise ValueError(f"{self.name}: coefficients for {c.shape}, "
                              f"field {tuple(p.shape)}")
-        fields.update(rx=c.rx, ry=c.ry, cy=c.cy, cyb=c.cyb)
-        _check_tensors(self.name, p, fields)
+        _check_tensors(self.name, p, fields,
+                       {"rx": c.rx, "ry": c.ry, "cy": c.cy, "cyb": c.cyb})
         if _launch_target(self.name, p) == "cpu":
             return poisson2d_plain(mode, p, c, b, w, omega)
         if N0 == 0 or N1 == 0 or N0 > _MAX_ROWS:
             raise ValueError(f"{self.name}: unsupported shape {(N0, N1)}")
         out = torch.empty_like(p)
-        fn = getattr(load_library(), f"fluca_poisson2d_{_DTYPE_SUFFIX[p.dtype]}")
-        err = fn(
-            POISSON_MODES[mode], p.data_ptr(),
+        self._launch(
+            p.dtype, POISSON_MODES[mode], p.data_ptr(),
             b.data_ptr() if b is not None else None,
             w.data_ptr() if w is not None else None,
             c.rx.data_ptr(), c.ry.data_ptr(), c.cy.data_ptr(),
@@ -332,8 +395,6 @@ class Poisson2DKernel:
             int(c.periodic[0]), int(c.periodic[1]), float(omega),
             _stream_ptr(p),
         )
-        _check_cuda(self.name, err)
-        self.launches += 1
         return out
 
 
@@ -350,9 +411,12 @@ MOMENTUM_PLANES = 26
 def momentum2d_plain(W, u, v, periodic):
     """Plain PyTorch version of the momentum 2-D kernel: A (u, v) from
     the (26, N0, N1) plane stack of
-    NSOperators.build_momentum_coeffs_stacked."""
+    NSOperators.build_momentum_coeffs_stacked, computed in the
+    ``coef_dtype`` of the fields' dtype and returned in the fields'."""
     N0, N1 = u.shape
     per0, per1 = periodic
+    out_dtype = u.dtype
+    W, u, v = _upcast(coef_dtype(u.dtype), W, u, v)
 
     def sx(x, o):
         return shifted(x, 0, o, N0, per0)
@@ -374,16 +438,14 @@ def momentum2d_plain(W, u, v, periodic):
         + W[22] * sx(v, -2) + W[23] * sx(v, 2)
         + W[24] * sy(v, -2) + W[25] * sy(v, 2)
     )
-    return out_u, out_v
+    return out_u.to(out_dtype), out_v.to(out_dtype)
 
 
-class Momentum2DKernel:
-    """Wrapper of the momentum 2-D kernel (csrc/momentum2d.cu)."""
+class Momentum2DKernel(_Kernel):
+    """Wrapper of the momentum 2-D kernel (csrc/momentum2d.cu). The
+    plane stack is in the fields' dtype."""
 
     name = "momentum2d"
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, W, u, v, periodic):
         if not isinstance(u, torch.Tensor) or u.dim() != 2:
@@ -403,12 +465,9 @@ class Momentum2DKernel:
             raise ValueError(f"{self.name}: unsupported shape {(N0, N1)}")
         out_u = torch.empty_like(u)
         out_v = torch.empty_like(v)
-        fn = getattr(load_library(), f"fluca_momentum2d_{_DTYPE_SUFFIX[u.dtype]}")
-        err = fn(W.data_ptr(), u.data_ptr(), v.data_ptr(),
-                 out_u.data_ptr(), out_v.data_ptr(), N0, N1,
-                 int(per0), int(per1), _stream_ptr(u))
-        _check_cuda(self.name, err)
-        self.launches += 1
+        self._launch(u.dtype, W.data_ptr(), u.data_ptr(), v.data_ptr(),
+                     out_u.data_ptr(), out_v.data_ptr(), N0, N1,
+                     int(per0), int(per1), _stream_ptr(u))
         return out_u, out_v
 
 
@@ -448,7 +507,8 @@ def poisson3d_coeffs(mesh, host_dgst, host_vol):
 @dataclass(frozen=True)
 class Poisson3DCoeffs:
     """Device copies of the ``poisson3d_coeffs`` arrays for one grid
-    level, with the level's periodicity; checked once when built."""
+    level, with the level's periodicity, in a coefficient dtype (float32
+    or float64); checked once when built."""
 
     a0: torch.Tensor  # (3, N0)
     c1: torch.Tensor  # (3, N1)
@@ -465,6 +525,7 @@ class Poisson3DCoeffs:
                 raise ValueError(f"poisson3d coefficients: axis {d} has "
                                  f"bands {tuple(band.shape)}, widths "
                                  f"{tuple(h.shape)}")
+        _check_coeff_dtype("poisson3d coefficients", self.a0)
         _check_tensors("poisson3d coefficients", self.a0, {
             "a0": self.a0, "c1": self.c1, "c2": self.c2,
             "h0": self.h0, "h1": self.h1, "h2": self.h2})
@@ -483,7 +544,10 @@ class Poisson3DCoeffs:
 def poisson3d_plain(mode, p, c: Poisson3DCoeffs, b=None, w=None,
                     omega=0.0):
     """Plain PyTorch version of the Poisson 3-D kernel (same function,
-    same coefficient arrays)."""
+    same coefficient arrays): computed in the coefficients' dtype,
+    returned in the fields'."""
+    out_dtype = p.dtype
+    p, b, w = _upcast(c.a0.dtype, p, b, w)
 
     def axis_sum(band, d):
         shape = [1, 1, 1]
@@ -497,20 +561,13 @@ def poisson3d_plain(mode, p, c: Poisson3DCoeffs, b=None, w=None,
     h2 = c.h2[None, None, :]
     sp = (h1 * h2 * axis_sum(c.a0, 0)
           + h0 * (h2 * axis_sum(c.c1, 1) + h1 * axis_sum(c.c2, 2)))
-    if mode == "apply":
-        return sp
-    if mode == "residual":
-        return b - sp
-    return p + omega * w * (b - sp)
+    return _poisson_mode(mode, sp, p, b, w, omega).to(out_dtype)
 
 
-class Poisson3DKernel:
+class Poisson3DKernel(_Kernel):
     """Wrapper of the Poisson 3-D kernel (csrc/poisson3d.cu)."""
 
     name = "poisson3d"
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, mode, p, c: Poisson3DCoeffs, b=None, w=None,
                  omega=0.0):
@@ -518,17 +575,17 @@ class Poisson3DKernel:
         if tuple(p.shape) != c.shape:
             raise ValueError(f"{self.name}: coefficients for {c.shape}, "
                              f"field {tuple(p.shape)}")
-        fields["a0"] = c.a0  # the coefficients' dtype and device
-        _check_tensors(self.name, p, fields)
+        # the coefficient arrays share a0's dtype and device (checked
+        # when they were built)
+        _check_tensors(self.name, p, fields, {"a0": c.a0})
         if _launch_target(self.name, p) == "cpu":
             return poisson3d_plain(mode, p, c, b, w, omega)
         N0, N1, N2 = p.shape
         if 0 in (N0, N1, N2) or N0 > _MAX_PLANES or N1 > _MAX_ROWS:
             raise ValueError(f"{self.name}: unsupported shape {(N0, N1, N2)}")
         out = torch.empty_like(p)
-        fn = getattr(load_library(), f"fluca_poisson3d_{_DTYPE_SUFFIX[p.dtype]}")
-        err = fn(
-            POISSON_MODES[mode], p.data_ptr(),
+        self._launch(
+            p.dtype, POISSON_MODES[mode], p.data_ptr(),
             b.data_ptr() if b is not None else None,
             w.data_ptr() if w is not None else None,
             c.a0.data_ptr(), c.c1.data_ptr(), c.c2.data_ptr(),
@@ -536,8 +593,6 @@ class Poisson3DKernel:
             out.data_ptr(), N0, N1, N2, *(int(x) for x in c.periodic),
             float(omega), _stream_ptr(p),
         )
-        _check_cuda(self.name, err)
-        self.launches += 1
         return out
 
 
@@ -596,7 +651,8 @@ def _face_shape(shape, periodic, a):
 @dataclass(frozen=True)
 class Momentum3DBands:
     """Device copies of the three band arrays, with the grid's
-    periodicity; checked once when built."""
+    periodicity, in a coefficient dtype (float32 or float64); checked
+    once when built."""
 
     b: tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (27, N_a)
     periodic: tuple[bool, bool, bool]
@@ -606,6 +662,7 @@ class Momentum3DBands:
                 B.dim() != 2 or B.shape[0] != MOMENTUM3D_ROWS for B in self.b):
             raise ValueError(f"momentum3d bands must be three "
                              f"({MOMENTUM3D_ROWS}, N_a) arrays")
+        _check_coeff_dtype("momentum3d bands", self.b[0])
         _check_tensors("momentum3d bands", self.b[0],
                        {f"b{a}": B for a, B in enumerate(self.b)})
 
@@ -624,9 +681,12 @@ class Momentum3DBands:
 class Momentum3DFactors:
     """The step's 12 face arrays as the kernel reads them: U0[a] and
     v0f[a][c] in face_shape(a) of the cell ``shape``, contiguous, on one
-    device in one dtype; checked once when built. ``from_faces`` builds
-    them once per step (the TPU ``prep``, here only a dtype and
-    contiguity pass)."""
+    device in one field dtype; checked once when built. ``from_faces``
+    builds them once per step (the TPU ``prep``, here only a dtype and
+    contiguity pass). The reduced-precision preconditioner builds its
+    bf16 factors so, from the step's U0 and v0f, for bands in float32:
+    the kernel reads the face arrays in place, so there is no tile
+    layout that a cast of the float32 factors could get wrong."""
 
     U0: tuple
     v0f: tuple
@@ -650,8 +710,14 @@ class Momentum3DFactors:
                        {label: F for label, (_, F) in faces.items()})
 
     @classmethod
-    def from_faces(cls, U0, v0f, bands: Momentum3DBands):
-        dtype = bands.b[0].dtype
+    def from_faces(cls, U0, v0f, bands: Momentum3DBands, dtype=None):
+        """The factors in the field dtype ``dtype`` (the bands' dtype if
+        None) for ``bands``, whose dtype must be its ``coef_dtype``."""
+        dtype = bands.b[0].dtype if dtype is None else dtype
+        if dtype not in _DTYPE_SUFFIX or coef_dtype(dtype) != bands.b[0].dtype:
+            raise TypeError(f"momentum3d factors: fields in {dtype} take "
+                            f"bands in {coef_dtype(dtype)}, not "
+                            f"{bands.b[0].dtype}")
 
         def prep(F):
             return F.to(dtype).contiguous() if isinstance(F, torch.Tensor) else F
@@ -667,9 +733,15 @@ def momentum3d_plain(bands: Momentum3DBands, f: Momentum3DFactors, v):
     from the algebra of the TPU kernel's body (pallas_stencil.py:
     1019-1129): the normal-variant sums on v_a shared by all
     components, the tangential-variant sums times the U0 factors for
-    c != a, and the +-2 Laplacian rows on all three axes."""
+    c != a, and the +-2 Laplacian rows on all three axes. Computed in
+    the bands' dtype, returned in the fields'."""
     per = bands.periodic
     shape = v[0].shape
+    out_dtype = v[0].dtype
+    acc_dtype = bands.b[0].dtype
+    v = _upcast(acc_dtype, *v)
+    U0 = _upcast(acc_dtype, *f.U0)
+    v0f = tuple(_upcast(acc_dtype, *row) for row in f.v0f)
 
     def sh(x, a, off):
         return shifted(x, a, off, shape[a], per[a])
@@ -689,11 +761,11 @@ def momentum3d_plain(bands: Momentum3DBands, f: Momentum3DFactors, v):
 
     acc = list(v)
     for a in range(3):
-        FlU, FrU = lo_hi(f.U0[a], a)
+        FlU, FrU = lo_hi(U0[a], a)
         nl = band_sum(a, conv_rows(1, 0), v[a])
         nr = band_sum(a, conv_rows(1, 1), v[a])
         for c in range(3):
-            Flv, Frv = lo_hi(f.v0f[a][c], a)
+            Flv, Frv = lo_hi(v0f[a][c], a)
             s = band_sum(a, [(off, mom3d_lap_row(c, off))
                              for off in (-2, -1, 0, 1, 2)], v[c])
             if c == a:
@@ -703,30 +775,29 @@ def momentum3d_plain(bands: Momentum3DBands, f: Momentum3DFactors, v):
                      + FlU * band_sum(a, conv_rows(0, 0), v[c])
                      + FrU * band_sum(a, conv_rows(0, 1), v[c]))
             acc[c] = acc[c] + s
-    return tuple(acc)
+    return tuple(x.to(out_dtype) for x in acc)
 
 
-class Momentum3DKernel:
+class Momentum3DKernel(_Kernel):
     """Wrapper of the momentum 3-D kernel (csrc/momentum3d.cu). The
     bands and the factors are checked when they are built; a call
-    checks v and that the three agree."""
+    checks v and that the three agree: v in the factors' dtype, the
+    bands in its ``coef_dtype``."""
 
     name = "momentum3d"
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, bands: Momentum3DBands, f: Momentum3DFactors, v):
         if len(v) != 3:
             raise ValueError(f"{self.name}: v must hold 3 components")
-        ref = bands.b[0]
+        band0, ref = bands.b[0], f.U0[0]
         if f.shape != bands.shape or f.periodic != bands.periodic \
-                or f.U0[0].dtype != ref.dtype or f.U0[0].device != ref.device:
+                or coef_dtype(ref.dtype) != band0.dtype \
+                or ref.device != band0.device:
             raise ValueError(f"{self.name}: factors for {f.shape} "
-                             f"periodic {f.periodic} {f.U0[0].dtype} on "
-                             f"{f.U0[0].device}, bands for {bands.shape} "
-                             f"periodic {bands.periodic} {ref.dtype} on "
-                             f"{ref.device}")
+                             f"periodic {f.periodic} {ref.dtype} on "
+                             f"{ref.device}, bands for {bands.shape} "
+                             f"periodic {bands.periodic} {band0.dtype} on "
+                             f"{band0.device}")
         for e, x in enumerate(v):
             if not isinstance(x, torch.Tensor) or tuple(x.shape) != bands.shape:
                 raise ValueError(f"{self.name}: v[{e}] must have shape "
@@ -740,12 +811,8 @@ class Momentum3DKernel:
         out = tuple(torch.empty_like(x) for x in v)
         ptrs = (ctypes.c_void_p * 21)(*(t.data_ptr() for t in (
             *bands.b, *v, *f.U0, *(F for row in f.v0f for F in row), *out)))
-        fn = getattr(load_library(),
-                     f"fluca_momentum3d_{_DTYPE_SUFFIX[ref.dtype]}")
-        err = fn(ptrs, N0, N1, N2, *(int(x) for x in bands.periodic),
-                 _stream_ptr(ref))
-        _check_cuda(self.name, err)
-        self.launches += 1
+        self._launch(ref.dtype, ptrs, N0, N1, N2,
+                     *(int(x) for x in bands.periodic), _stream_ptr(ref))
         return out
 
 
@@ -756,4 +823,4 @@ KERNELS = (poisson2d, momentum2d, poisson3d, momentum3d)
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.reset()

@@ -57,10 +57,17 @@ def tree_leaves(tree):
 
 
 def tree_dot(a, b):
-    """Tree inner product (a 0-d tensor on the leaves' device)."""
+    """Tree inner product (a 0-d tensor on the leaves' device).
+    Leaves narrower than 32 bits (the bf16 inner solves) sum their
+    products, rounded to the leaf dtype, in float32: ``torch.dot`` on
+    bf16 returns bf16, which loses the O(n) sum
+    (fluca_tpu.solvers.krylov.tree_dot)."""
     tot = None
     for x, y in zip(tree_leaves(a), tree_leaves(b)):
-        d = torch.dot(x.reshape(-1), y.reshape(-1))
+        if x.dtype.itemsize < 4:
+            d = torch.sum((x * y).to(torch.float32))
+        else:
+            d = torch.dot(x.reshape(-1), y.reshape(-1))
         tot = d if tot is None else tot + d
     return tot
 
@@ -69,13 +76,20 @@ def tree_norm(a):
     return torch.sqrt(tree_dot(a, a))
 
 
+def _scalar_as(alpha, x):
+    """A 0-d tensor scalar in ``x``'s dtype, so that the float32 sums
+    of ``tree_dot`` keep bf16 vectors in bf16; a number as it is."""
+    return alpha.to(x.dtype) if isinstance(alpha, torch.Tensor) else alpha
+
+
 def tree_axpy(alpha, x, y):
-    """y + alpha * x (alpha a number or 0-d tensor)."""
-    return tree_map(lambda xi, yi: yi + alpha * xi, x, y)
+    """y + alpha * x (alpha a number or 0-d tensor, cast to each
+    leaf's dtype)."""
+    return tree_map(lambda xi, yi: yi + _scalar_as(alpha, xi) * xi, x, y)
 
 
 def tree_scale(alpha, x):
-    return tree_map(lambda xi: alpha * xi, x)
+    return tree_map(lambda xi: _scalar_as(alpha, xi) * xi, x)
 
 
 def tree_sub(x, y):

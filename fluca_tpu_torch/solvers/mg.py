@@ -18,6 +18,13 @@ level).
 Every level's apply, residual and Jacobi sweep goes through the fused
 Poisson 2-D or 3-D kernel (ops/cuda_stencil.py), by the mesh's
 dimension, whatever the level's size.
+
+A hierarchy in bfloat16 (the reduced-precision ABF preconditioner's
+Schur solve) keeps its fields, volumes, inverse diagonals, restriction,
+prolongation and V-cycle in bf16 and its kernel coefficient arrays in
+float32 (``cuda_stencil.coef_dtype``). Its coarse pseudo-inverse is
+stored rounded to bf16, as the reference stores it, and applied with
+float32 sums.
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ def _build_level(mesh: CartMesh, axbcs, scale: float, dtype, device) -> _Level:
     else:
         make, cls = cuda_stencil.poisson3d_coeffs, cuda_stencil.Poisson3DCoeffs
     coeffs = cls.from_host(make(mesh, host_dgst, host_vol), mesh.periodic,
-                           dtype, device)
+                           cuda_stencil.coef_dtype(dtype), device)
     return _Level(
         mesh=mesh,
         coeffs=coeffs,
@@ -173,6 +180,11 @@ class PoissonMG:
         self._coarse_pinv = torch.as_tensor(
             np.linalg.pinv(A), dtype=dtype, device=device
         )
+        # the coarse product sums in at least float32: for a bf16
+        # hierarchy, the bf16-rounded pinv widened once
+        self._coarse_pinv_acc = self._coarse_pinv.to(
+            torch.promote_types(dtype, torch.float32)
+        )
         if device.type == "cuda":
             # the coarse mat-vec must run in full f32, never TF32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -248,8 +260,9 @@ class PoissonMG:
     def _vcycle(self, li, x, b):
         lvl = self.levels[li]
         if li == len(self.levels) - 1:
-            xf = torch.matmul(self._coarse_pinv, b.reshape(-1))
-            return xf.reshape(lvl.mesh.cell_shape)
+            pinv = self._coarse_pinv_acc
+            xf = torch.matmul(pinv, b.reshape(-1).to(pinv.dtype))
+            return xf.to(b.dtype).reshape(lvl.mesh.cell_shape)
         x = self._smooth(lvl, x, b, self.nu_pre)
         r = self._residual(lvl, x, b)
         rc = self._restrict(r)

@@ -2,8 +2,10 @@
 
 The compute dtype defaults to float32, the card's native width for the
 stencil kernels. Verification runs pass ``dtype=torch.float64``
-explicitly. There is no device default: every constructor that makes
-tensors takes its device as an argument.
+explicitly. bfloat16 is the reduced-precision ABF preconditioner's
+dtype (``CNLinearConfig.precond_dtype``), not a solver dtype. There is
+no device default: every constructor that makes tensors takes its
+device as an argument.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ _DTYPE_NAMES = {
     "f32": torch.float32,
     "float64": torch.float64,
     "f64": torch.float64,
+    "bfloat16": torch.bfloat16,
+    "bf16": torch.bfloat16,
 }
 
 _default_dtype = torch.float32

@@ -1,0 +1,254 @@
+"""The port's bf16 inner solves against fluca_tpu's own bf16 code, run
+one operation at a time.
+
+fluca_tpu cannot compile a bf16 step on the CPU (tests/test_bf16_precond.py),
+but under ``jax.disable_jit`` each operation is a program of its own,
+compiled at once and rounded to bf16 at its output, as the port rounds
+each torch operation. That makes the reference's own code a witness of
+its algorithm at the port's rounding: a fault in the port's bf16 path
+would part the two, a property of the algorithm would not.
+
+The tests hold the two packages' bf16 inner solves, the reduced-precision
+preconditioner's two parts, on the same right-hand side of the 128^2
+cavity (dt 0.005, as the reference's bf16 accuracy pin,
+examples/tune_budget_tpu.py) against the exact float64 solution, as
+||x - exact|| / ||exact||:
+
+- the Schur solve, production's 6 CG iterations over the bf16 PoissonMG
+  with the constant-nullspace projection. Measured (CPU): port 5.3e-3
+  (random rhs) and 2.9e-3 (smooth rhs), reference 1.0e-2 and 1.9e-2;
+  float32 ~3e-7 in both. The port's kernels read float32 coefficients
+  and sum in float32, where the reference's banded path on bf16 tables
+  rounds each product and sum;
+- the momentum solve, production's 8 BiCGStab iterations with the bf16
+  A-apply, at a random state of CFL ~0.6. Measured (CPU): port 5.3e-3,
+  reference 6.9e-3; in float32 3.2e-6, the two 1.4e-7 apart.
+
+Bound: the port's bf16 error is at most 1.5 times the reference's own on
+the same solve (the rounding order differs); in float32 the Schur solves
+are within 1e-5 of the exact solution and the two momentum solves within
+1e-5 of each other.
+
+Run as a script, it prints the whole-step readings that PERF.md cites
+(each takes a few minutes; the reference's bf16 run is the slow part):
+
+    python tests/test_torch_bf16_witness.py pin
+        the reference's bf16 accuracy pin, 50 steps of the 128^2 cavity,
+        max |dev| over u, v and p from the converged FGMRES solve: the
+        reference's code op by op, and the port (with 1, 2 and 4 torch
+        threads: the spread that the order of the sums alone gives), both
+        on the CPU
+    python tests/test_torch_bf16_witness.py cavity256
+        |u|max and ksp_rnorm of the first 22 steps of the 256^2 cavity at
+        dt 0.01 with bf16 on both inner solves, in both packages
+"""
+
+if __name__ == "__main__":  # run as a script: the settings of conftest.py
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+
+import functools
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from fluca_tpu.models.cavity import setup_cavity_2d as j_cavity
+from fluca_tpu.ns.cnlinear import CNLinearConfig as JConfig
+from fluca_tpu_torch.models.cavity import setup_cavity_2d as t_cavity
+from fluca_tpu_torch.ns.cnlinear import CNLinearConfig as TConfig
+
+from torch_threads import one_thread_per_worker  # noqa: F401 (autouse fixture)
+
+BF16, F32, F64 = torch.bfloat16, torch.float32, torch.float64
+N, DT = 128, 0.005
+WORSE_BY = 1.5
+F32_BOUND = 1e-5
+
+
+def bf16_production(Config):
+    cfg = Config.production(3, 8, 6)
+    cfg.precond_dtype = "bfloat16"
+    return cfg
+
+
+def rel(got, exact) -> float:
+    got = np.asarray(got, np.float64)
+    return float(np.linalg.norm(got - exact) / np.linalg.norm(exact))
+
+
+def schur_rhs(kind):
+    """A compatible (zero-mean) rhs of the pressure problem, from a seed."""
+    rng = np.random.default_rng(0)
+    if kind == "random":
+        rhs = rng.standard_normal((N, N))
+    else:
+        x = np.linspace(0.0, 1.0, N)
+        rhs = (np.sin(3 * np.pi * x)[:, None] * np.cos(2 * np.pi * x)[None, :]
+               + 0.01 * rng.standard_normal((N, N)))
+    return rhs - rhs.mean()
+
+
+@functools.lru_cache(maxsize=None)
+def solvers():
+    """(port float32, reference float32, port float64 to tolerance), the
+    first two with bf16 on both inner solves."""
+    port = t_cavity(N=N, Re=100.0, dt=DT, device="cpu", dtype=F32).impl
+    port.cfg = bf16_production(TConfig)
+    ref = j_cavity(N=N, Re=100.0, dt=DT, dtype=jnp.float32).impl
+    ref.cfg = bf16_production(JConfig)
+    exact = t_cavity(N=N, Re=100.0, dt=DT, device="cpu", dtype=F64).impl
+    exact.cfg = TConfig(schur_rtol=1e-13, schur_maxiter=2000, mom_rtol=1e-13,
+                        mom_maxiter=2000)
+    return port, ref, exact
+
+
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+def test_bf16_schur_solve_against_reference(kind):
+    port, ref, exact = solvers()
+    rhs = schur_rhs(kind)
+    want = exact._solve_schur(torch.tensor(rhs)).numpy()
+    got16 = port._solve_schur(torch.tensor(rhs).to(BF16),
+                              mg=port._pre_resources()["mg"])
+    with jax.disable_jit():
+        ref16 = ref._solve_schur(jnp.asarray(rhs, jnp.bfloat16),
+                                 mg=ref._pre_resources()["mg"])
+    assert got16.dtype == BF16 and ref16.dtype == jnp.bfloat16
+    port_err = rel(got16.float().numpy(), want)
+    ref_err = rel(np.asarray(ref16, np.float64), want)
+    assert port_err <= WORSE_BY * ref_err, (port_err, ref_err)
+    got32 = port._solve_schur(torch.tensor(rhs, dtype=F32))
+    ref32 = ref._solve_schur(jnp.asarray(rhs, jnp.float32))
+    assert rel(got32.numpy(), want) <= F32_BOUND
+    assert rel(np.asarray(ref32), want) <= F32_BOUND
+
+
+def random_step_fields(mesh):
+    """U0 and v0f of O(1) (a CFL of ~0.6 at dt 0.005), and a momentum
+    rhs, from a seed."""
+    rng = np.random.default_rng(1)
+    U0 = tuple(0.5 * rng.standard_normal(mesh.face_shape(d)) for d in range(2))
+    v0f = tuple(tuple(0.5 * rng.standard_normal(mesh.face_shape(d)) for _ in range(2))
+                for d in range(2))
+    rhs = tuple(rng.standard_normal(mesh.cell_shape) for _ in range(2))
+    return U0, v0f, rhs
+
+
+def test_bf16_momentum_solve_against_reference():
+    port, ref, exact = solvers()
+    U0, v0f, rhs = random_step_fields(port.mesh)
+
+    def t(xs, dtype):
+        return tuple(torch.tensor(x, dtype=dtype) for x in xs)
+
+    def j(xs, dtype):
+        return tuple(jnp.asarray(x, dtype) for x in xs)
+
+    tU0, tv0f = t(U0, F64), tuple(t(r, F64) for r in v0f)
+    want = exact._solve_momentum(
+        t(rhs, F64), exact.ops.build_momentum_operator(tU0, tv0f),
+        exact.ops.diag_A(tU0, tv0f))
+    want = np.stack([x.numpy() for x in want])
+
+    tU0, tv0f = t(U0, F32), tuple(t(r, F32) for r in v0f)
+    Ac, dA = port.ops.build_momentum_operator(tU0, tv0f), port.ops.diag_A(tU0, tv0f)
+    ctx = port._precond_ctx(Ac, dA, tU0, tv0f)
+    got16 = port._solve_momentum(t(rhs, BF16), ctx["Acoeffs"], ctx["diagA"])
+    got32 = port._solve_momentum(t(rhs, F32), Ac, dA)
+
+    jU0, jv0f = j(U0, jnp.float32), tuple(j(r, jnp.float32) for r in v0f)
+    Ac, dA = ref.ops.build_momentum_coeffs(jU0, jv0f), ref.ops.diag_A(jU0, jv0f)
+    jctx = ref._precond_ctx(Ac, dA, U0=jU0, v0f=jv0f)
+    with jax.disable_jit():
+        ref16 = ref._solve_momentum(j(rhs, jnp.bfloat16), jctx["Acoeffs"],
+                                    jctx["diagA"], applyA=jctx["applyA"])
+    ref32 = ref._solve_momentum(j(rhs, jnp.float32), Ac, dA)
+
+    assert {x.dtype for x in got16} == {BF16}
+    assert {x.dtype for x in ref16} == {jnp.dtype(jnp.bfloat16)}
+    port_err = rel(np.stack([x.float().numpy() for x in got16]), want)
+    ref_err = rel(np.stack([np.asarray(x, np.float64) for x in ref16]), want)
+    assert port_err <= WORSE_BY * ref_err, (port_err, ref_err)
+    # in float32 the two packages run the same iterations to roundoff
+    got32, ref32 = (np.stack([np.asarray(x, np.float64) for x in xs])
+                    for xs in (got32, ref32))
+    assert rel(got32, ref32) <= F32_BOUND
+
+
+# ----------------------------------------------------------------------
+# the whole-step readings (script mode)
+# ----------------------------------------------------------------------
+
+def _fields(state):
+    return [np.asarray(x, np.float64) for x in (*state["v"], state["p"])]
+
+
+def pin():
+    def ref_run(cfg, eager):
+        ns = j_cavity(N=N, Re=100.0, dt=DT, max_steps=60, dtype=jnp.float32)
+        ns.impl.cfg = cfg
+        if eager:
+            with jax.disable_jit():
+                ns.advance(50)
+        else:
+            ns.advance(50)
+        return _fields(ns.state)
+
+    def port_run(cfg):
+        ns = t_cavity(N=N, Re=100.0, dt=DT, device="cpu", dtype=F32)
+        ns.impl.cfg = cfg
+        ns.advance(50)
+        return _fields(ns.state)
+
+    converged = ref_run(JConfig(), eager=False)
+    for label, got in (
+        ("reference f32 production(3, 8, 6)", lambda: ref_run(JConfig.production(3, 8, 6), False)),
+        ("reference bf16 (both), op by op", lambda: ref_run(bf16_production(JConfig), True)),
+        ("port f32 production(3, 8, 6)", lambda: port_run(TConfig.production(3, 8, 6))),
+        *((f"port bf16 (both), {n} torch threads",
+           functools.partial(threaded, n, port_run, bf16_production(TConfig)))
+          for n in (1, 2, 4)),
+    ):
+        devs = [float(np.max(np.abs(a - b))) for a, b in zip(got(), converged)]
+        print(f"{label}: max |dev| u {devs[0]:.4e}, v {devs[1]:.4e}, p {devs[2]:.4e}; "
+              f"max {max(devs):.4e} U_lid", flush=True)
+
+
+def threaded(n, fn, *args):
+    """fn(*args) with n torch threads: another order of the float32 sums."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        return fn(*args)
+    finally:
+        torch.set_num_threads(old)
+
+
+def cavity256(nsteps=22):
+    ref = j_cavity(N=256, Re=100.0, dt=0.01, max_steps=100, dtype=jnp.float32)
+    ref.impl.cfg = bf16_production(JConfig)
+    port = t_cavity(N=256, Re=100.0, dt=0.01, device="cpu", dtype=F32)
+    port.impl.cfg = bf16_production(TConfig)
+    print("step: |u|max reference, port; ksp_rnorm reference, port", flush=True)
+    for k in range(nsteps):
+        with jax.disable_jit():
+            ref.step()
+        port.step()
+        print(f"{k + 1}: {float(jnp.max(jnp.abs(ref.state['v'][0]))):.4f}, "
+              f"{float(port.state['v'][0].abs().max()):.4f}; "
+              f"{float(ref.last_diag['ksp_rnorm']):.4g}, "
+              f"{float(port.last_diag['ksp_rnorm']):.4g}", flush=True)
+
+
+if __name__ == "__main__":
+    {"pin": pin, "cavity256": cavity256}[sys.argv[1]]()
