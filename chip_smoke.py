@@ -64,7 +64,19 @@ Phases:
      bf16 preconditioner on the momentum solve), under the same gates, with
      the bf16 instances checked and timed at its shapes;
   9. app 3-D: the CLI entry point at 64^3 with -cart_dim 3;
- 10. ledger: every kernel wrapper records the (shape, instance, band set)
+ 10. sharded: the domain-decomposed step (parallel/, NS.shard,
+     -parallel_grid), shards as boxes of the global tensors on the card:
+     each halo instance (float32 and float64) against its plain version
+     and, at max abs difference 0, against the unsharded kernel on the
+     global field, on every periodic/wall combination of the reference's
+     tests and at the shapes of the runs below; the 256^2 Re 100 cavity on
+     a (4, 2) grid (21 steps) and BASELINE #5, the 512x256x256 channel, f32
+     production(3, 8, 6) on (2, 2, 2) (11 steps, under its retention gate),
+     each against the unsharded unchained run of the same steps
+     (SHARDED_RTOL); two planted edge-plane faults that both comparisons
+     must catch; the apps with -parallel_grid 2x2 (64^2) and 2x2x2 (32^3);
+     the halo instances timed beside the unsharded kernels;
+ 11. ledger: every kernel wrapper records the (shape, instance, band set)
      keys it launched at, and each check the key it covered; the script
      fails if any launched key went unchecked.
 It prints the kernels' JSON summary, then the card's name and power limit
@@ -95,11 +107,16 @@ from fluca_tpu_torch.models.channel import setup_channel_3d
 from fluca_tpu_torch.models.tgv import setup_taylor_green_2d
 from fluca_tpu_torch.ns import tables as T_
 from fluca_tpu_torch.ns.bc import BCType, BoundaryCondition, zero_velocity_bc
-from fluca_tpu_torch.ns.cnlinear import CNLinearConfig
+from fluca_tpu_torch.ns.cnlinear import CNLinearConfig, UnfusedChain
 from fluca_tpu_torch.ns.operators import NSOperators
 from fluca_tpu_torch.ops import cuda_stencil
 from fluca_tpu_torch.ops.chain3d import (
     CHAIN_ROWS, Chain3D, bands_fingerprint, build_chain_bands, chain3d_plain,
+)
+from fluca_tpu_torch.parallel.mesh import make_device_grid
+from fluca_tpu_torch.parallel.sharded import (
+    build_momentum2d_sharded, build_momentum_sharded, build_poisson_sharded, field_edges,
+    halo_layout,
 )
 from fluca_tpu_torch.solvers import mg as mg_mod
 
@@ -1531,6 +1548,486 @@ def phase_app3d(entries):
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
+# ----------------------------------------------------------------------
+# the domain-decomposed step
+# ----------------------------------------------------------------------
+
+HALO = {"poisson2d": cuda_stencil.poisson2d_halo, "momentum2d": cuda_stencil.momentum2d_halo,
+        "poisson3d": cuda_stencil.poisson3d_halo, "momentum3d": cuda_stencil.momentum3d_halo}
+HALO_PLAIN = {"poisson2d": cuda_stencil.poisson2d_halo_plain,
+              "poisson3d": cuda_stencil.poisson3d_halo_plain}
+# The function that builds each halo instance's TPU counterpart
+# (fluca_tpu/parallel/pallas_sharded.py).
+HALO_REPLACES = {"poisson2d": 71, "momentum2d": 181, "poisson3d": 71, "momentum3d": 256}
+# The sharded run against the unsharded unchained run of the same steps,
+# as ||a - b|| / ||b|| over v, over U and over p, float32. The halo
+# kernels do the unsharded kernels' arithmetic in the same order and the
+# rest of the step runs on the global tensors as it is, so the two runs
+# should agree bit for bit (predicted: 0); a wrong edge plane gives
+# O(1e-3) or more after one step.
+SHARDED_RTOL = 1e-6
+
+
+def hold_halo(entries, name, label, dtype, got, plain, unsharded):
+    """The halo instance's outputs ``got`` against its plain version's
+    ``plain`` (KERNEL_RTOL; marks its ledger key) and against the
+    unsharded kernel's ``unsharded`` on the global field: max abs
+    difference 0."""
+    e = entries[name + "_halo"]
+    check_kernel(e, f"{name}_halo {label}", dtype, got, plain, HALO[name])
+    d = max(max_abs(a, b) for a, b in zip(got, unsharded))
+    e["max_abs_vs_unsharded"] = max(e["max_abs_vs_unsharded"], d)
+    e["checks"] += 1
+    if d != 0.0:
+        raise AssertionError(f"{name}_halo {label} {dtype}: differs from the unsharded "
+                             f"kernel by {d:.3e} (max abs)")
+
+
+def coeffs_as(c, dtype):
+    """A Poisson coefficient set in ``dtype``."""
+    if len(c.shape) == 2:
+        return cuda_stencil.Poisson2DCoeffs(c.rx.to(dtype), c.ry.to(dtype), c.cy.to(dtype),
+                                            c.cyb.to(dtype), c.periodic)
+    return cuda_stencil.Poisson3DCoeffs(*(x.to(dtype) for x in (c.a0, c.c1, c.c2, c.h0,
+                                                                c.h1, c.h2)), c.periodic)
+
+
+def check_poisson_halo(entries, label, grid, mesh, coeffs, inv_diag, rng):
+    """The three modes of the halo instance under ``grid`` on one level's
+    coefficients, fields in ``inv_diag``'s dtype, against its plain
+    version and the unsharded kernel (itself held against its plain
+    version); returns the number of checks."""
+    name = "poisson2d" if mesh.dim == 2 else "poisson3d"
+    kernel, plain = getattr(cuda_stencil, name), getattr(cuda_stencil, name + "_plain")
+    dtype = inv_diag.dtype
+    layout = halo_layout(grid, mesh)
+    p, b = (torch.as_tensor(rng.standard_normal(mesh.N), dtype=dtype, device="cuda")
+            for _ in range(2))
+    edges = field_edges(layout, p)
+    for mode in cuda_stencil.POISSON_MODES:
+        args = {"apply": (), "residual": (b,), "smooth": (b, inv_diag, 0.8)}[mode]
+        got = HALO[name](mode, p, coeffs, layout, edges, *args)
+        ref = HALO_PLAIN[name](mode, p, coeffs, layout, edges, *args)
+        uns = kernel(mode, p, coeffs, *args)
+        uref = plain(mode, p, coeffs, *args)
+        torch.cuda.synchronize()
+        tag = f"{mode} {label} {mesh.N} on {grid.shape}"
+        check_kernel(entries[name], f"{name} {tag}", dtype, (uns,), (uref,), kernel)
+        hold_halo(entries, name, tag, dtype, (got,), (ref,), (uns,))
+    return len(cuda_stencil.POISSON_MODES)
+
+
+def check_momentum2d_halo(entries, label, grid, mesh, W, rng):
+    """The 2-D momentum halo instance under ``grid`` on the plane stack W."""
+    dtype = W.dtype
+    layout = halo_layout(grid, mesh)
+    u, v = (torch.as_tensor(rng.standard_normal(mesh.N), dtype=dtype, device="cuda")
+            for _ in range(2))
+    ue, ve = field_edges(layout, u), field_edges(layout, v)
+    got = cuda_stencil.momentum2d_halo(W, u, v, layout, ue, ve)
+    ref = cuda_stencil.momentum2d_halo_plain(W, u, v, layout, ue, ve)
+    uns = cuda_stencil.momentum2d(W, u, v, mesh.periodic)
+    uref = cuda_stencil.momentum2d_plain(W, u, v, mesh.periodic)
+    torch.cuda.synchronize()
+    tag = f"{label} {mesh.N} on {grid.shape}"
+    check_kernel(entries["momentum2d"], f"momentum2d {tag}", dtype, uns, uref,
+                 cuda_stencil.momentum2d)
+    hold_halo(entries, "momentum2d", tag, dtype, got, ref, uns)
+    return 1
+
+
+def check_momentum3d_halo(entries, label, sm, U0, v0f, rng):
+    """The 3-D momentum halo instance of the sharded apply ``sm``
+    (parallel/sharded.py) on the factors of (U0, v0f) in its dtype."""
+    bands = sm.bands
+    dtype = bands.b[0].dtype
+    prepped = sm.prep(U0, v0f)
+    v = tuple(torch.as_tensor(rng.standard_normal(sm.layout.shape), dtype=dtype,
+                              device="cuda") for _ in range(3))
+    ve = tuple(field_edges(sm.layout, x) for x in v)
+    f = prepped.factors
+    got = cuda_stencil.momentum3d_halo(bands, f, v, sm.layout, ve, prepped.face_hi)
+    ref = cuda_stencil.momentum3d_halo_plain(bands, f, v, sm.layout, ve, prepped.face_hi)
+    uns = cuda_stencil.momentum3d(bands, f, v)
+    uref = cuda_stencil.momentum3d_plain(bands, f, v)
+    torch.cuda.synchronize()
+    tag = f"{label} {sm.layout.shape} on {sm.layout.grid.shape}"
+    check_kernel(entries["momentum3d"], f"momentum3d {tag}", dtype, uns, uref,
+                 cuda_stencil.momentum3d)
+    hold_halo(entries, "momentum3d", tag, dtype, got, ref, uns)
+    return 1
+
+
+def check_halo_combos(entries):
+    """Each halo instance, float32 and float64, on every periodic/wall
+    combination the reference tests (tests/test_pallas_sharded.py:41-42,
+    75-76, 122-123, 187-188), at its sizes: Poisson 32^2 on (4, 2) and
+    16^3 on (2, 2, 2), momentum 32^2 on (2, 4) and (4, 2) at random face
+    factors on a non-uniform grid, momentum (16, 16, 256) on (2, 2, 2)."""
+    rng = np.random.default_rng(20)
+    n = 0
+
+    def mesh_of(N, periodic):
+        m = CartMesh.create(N, periodic)
+        m.set_coordinates(*[(lambda f: f + 0.15 * (f - f**2))(np.linspace(0.0, 1.0, k + 1))
+                            for k in N])
+        return m
+
+    def bcs_of(periodic):
+        return [BoundaryCondition(BCType.PERIODIC) if per else zero_velocity_bc()
+                for per in periodic for _ in range(2)]
+
+    def rand(shape, dtype):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device="cuda")
+
+    for dtype in (torch.float32, torch.float64):
+        for N, grid_shape, combos in (((32, 32), (4, 2), ((False, False), (True, True),
+                                                            (True, False))),
+                                      ((16, 16, 16), (2, 2, 2), ((True, False, True),
+                                                                 (False, False, False)))):
+            for per in combos:
+                mesh = mesh_of(N, per)
+                lvl = mg_mod.PoissonMG(mesh, bcs_of(per), scale=1.0, dtype=dtype,
+                                       device="cuda").levels[0]
+                n += check_poisson_halo(entries, f"periodic={per}",
+                                        make_device_grid(len(N), shape=grid_shape), mesh,
+                                        lvl.coeffs, lvl.inv_diag, rng)
+        for per in ((False, False), (True, False), (True, True)):
+            mesh = mesh_of((32, 32), per)
+            ops = NSOperators(mesh, bcs_of(per), 1.3, 0.02, 0.01, dtype, "cuda")
+            W = ops.build_momentum_coeffs_stacked(
+                tuple(rand(mesh.face_shape(d), dtype) for d in range(2)),
+                tuple(tuple(rand(mesh.face_shape(d), dtype) for _ in range(2))
+                      for d in range(2)))
+            for shape in ((2, 4), (4, 2)):
+                n += check_momentum2d_halo(entries, f"periodic={per}",
+                                           make_device_grid(2, shape=shape), mesh, W, rng)
+        for per in ((True, False, True), (False, False, False)):
+            mesh = mesh_of((16, 16, 256), per)
+            sm = build_momentum_sharded(make_device_grid(3, shape=(2, 2, 2)), mesh,
+                                        T_.axis_bcs(mesh, bcs_of(per)), 1.3, 0.02, 0.01,
+                                        dtype)
+            n += check_momentum3d_halo(
+                entries, f"periodic={per}", sm,
+                tuple(rand(mesh.face_shape(d), dtype) for d in range(3)),
+                tuple(tuple(rand(mesh.face_shape(d), dtype) for _ in range(3))
+                      for d in range(3)), rng)
+    print(f"[sharded] {n} halo checks on every periodic/wall combination of the "
+          f"reference's tests, float32 and float64", flush=True)
+
+
+def check_sharded_solver(entries, label, ns, dtypes=None):
+    """The halo instances at the shapes of the sharded solver of ``ns``:
+    the Poisson modes on every level that runs sharded and the momentum
+    kernel on the current step's coefficients, in ``dtypes`` (the
+    solver's if None), each against its plain version and the unsharded
+    kernel."""
+    impl, ops, grid = ns.impl, ns.impl.ops, ns.device_grid
+    rng = np.random.default_rng(21)
+    v0f = step_v0f(ops, ns.state, ns.t)
+    n = 0
+    for dtype in dtypes or (impl.dtype,):
+        for lvl in impl.mg.levels:
+            if lvl.sharded:
+                n += check_poisson_halo(entries, label, grid, lvl.mesh,
+                                        coeffs_as(lvl.coeffs, dtype),
+                                        lvl.inv_diag.to(dtype), rng)
+        if ns.mesh.dim == 2:
+            W = ops.build_momentum_coeffs_stacked(ns.state["U"], v0f).to(dtype)
+            n += check_momentum2d_halo(entries, label, grid, ns.mesh, W, rng)
+        else:
+            sm = ops.sharded_momentum if dtype == impl.dtype else build_momentum_sharded(
+                grid, ns.mesh, ops.axbcs, impl.rho, impl.mu, impl.dt, dtype)
+            n += check_momentum3d_halo(entries, label, sm, ns.state["U"], v0f, rng)
+    print(f"[sharded] {label}: {n} halo checks on the sharded solver's levels "
+          f"{impl.mg.sharded_levels} and coefficients", flush=True)
+
+
+def planted_halo_faults(ns):
+    """Zero one edge plane of one shard, on the periodic x axis (shard 0's
+    wrap plane from the last shard) and on the wall-normal y axis (shard
+    0's plane from shard 1), and run the Poisson 3-D halo instance on the
+    finest level of the sharded channel: both comparisons, against the
+    plain version and against the unsharded kernel, must catch each."""
+    grid, lvl = ns.device_grid, ns.impl.mg.levels[0]
+    layout = halo_layout(grid, lvl.mesh)
+    p = torch.randn(lvl.mesh.N, generator=torch.Generator(device="cuda").manual_seed(22),
+                    device="cuda")
+    edges = field_edges(layout, p)
+    ref = cuda_stencil.poisson3d_halo_plain("apply", p, lvl.coeffs, layout, edges)
+    uns = cuda_stencil.poisson3d("apply", p, lvl.coeffs)
+    for axis, side, what in ((0, 0, "periodic x, shard 0's lo plane (the wrap)"),
+                             (1, 1, "wall-normal y, shard 0's hi plane")):
+        bad = [None if e is None else [t.clone() for t in e] for e in edges]
+        bad[axis][side].select(axis, 0).zero_()
+        got = cuda_stencil.poisson3d_halo("apply", p, lvl.coeffs, layout, bad)
+        torch.cuda.synchronize()
+        errs = (rel_err(got, ref), rel_err(got, uns))
+        print(f"[sharded] planted fault ({what} zeroed): rel err {errs[0]:.4e} against "
+              f"the plain version, {errs[1]:.4e} and max abs {max_abs(got, uns):.4e} "
+              f"against the unsharded kernel", flush=True)
+        if not (errs[0] > KERNEL_RTOL[torch.float32] and errs[1] > KERNEL_RTOL[torch.float32]
+                and max_abs(got, uns) > 0.0):
+            raise AssertionError(f"the planted fault ({what}) passed: {errs}")
+
+
+def sharded_run(make, grid_shape, nsteps, label, smi, entries, unsharded_state,
+                profile=False):
+    """``make()``'s solver sharded on ``grid_shape``: its halo instances
+    checked at its shapes (float32 and float64), one step + advance(nsteps
+    - 1) timed, and its state against ``unsharded_state`` (SHARDED_RTOL);
+    ``profile``: then a torch.profiler breakdown of 3 more steps. Returns
+    (ns, launches, mean |u| before the run)."""
+    ns = make()
+    u0 = float(ns.state["v"][0].abs().mean())
+    ns.shard(shape=grid_shape)
+    if not isinstance(ns.impl._stages, UnfusedChain) or ns.impl._pre_resources() is not None:
+        raise AssertionError(f"{label}: the sharded solver must run UnfusedChain, bf16 off")
+    check_sharded_solver(entries, label, ns, (torch.float32, torch.float64))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    first, adv, launches = timed_run(ns, nsteps - 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool(ns.last_diag["converged"]):
+        raise AssertionError(f"{label}: step {ns.step_index} did not converge")
+    assert_finite(ns, label)
+    names = ("poisson3d_halo", "momentum3d_halo") if ns.mesh.dim == 3 else (
+        "poisson2d_halo", "momentum2d_halo")
+    require_launches(launches, names, label)
+    st, ref = ns.state, unsharded_state
+    errs = {"v": vec_rel_err(st["v"], ref["v"]), "U": vec_rel_err(st["U"], ref["U"]),
+            "p": rel_err(st["p"], ref["p"])}
+    diffs = {"v": max(max_abs(a, b) for a, b in zip(st["v"], ref["v"])),
+             "U": max(max_abs(a, b) for a, b in zip(st["U"], ref["U"])),
+             "p": max_abs(st["p"], ref["p"])}
+    print(f"[sharded] {label} on {grid_shape}: first step {first * 1e3:.2f} ms, "
+          f"advance({nsteps - 1}) {adv * 1e3:.2f} ms = {(nsteps - 1) / adv:.4f} steps/s "
+          f"({smi}); ksp_rnorm {float(ns.last_diag['ksp_rnorm']):.4g}; peak memory "
+          f"{peak:.2f} GiB; levels sharded {ns.impl.mg.sharded_levels}; launches per step "
+          f"{per_step(launches, nsteps)}", flush=True)
+    print(f"[sharded] {label}, sharded vs unsharded unchained after {nsteps} steps: "
+          + ", ".join(f"{k} rel {errs[k]:.4e} max abs {diffs[k]:.4e}" for k in errs)
+          + f" (gate rel <= {SHARDED_RTOL:g}; predicted 0)", flush=True)
+    for k, e in errs.items():
+        if not e <= SHARDED_RTOL:
+            raise AssertionError(f"{label}: sharded vs unsharded {k} rel {e:.4e}")
+    if profile:
+        phase_profile(f"{label}, sharded on {grid_shape}", ns)
+    return ns, launches, u0
+
+
+def unsharded_run(make, nsteps, label, smi, profile=False):
+    """``make()``'s solver unchained (UnfusedChain, as the sharded step
+    runs), one step + advance(nsteps - 1); returns its state (taken before
+    the profiled steps where ``profile``)."""
+    ns = make()
+    unchain(ns)
+    first, adv, _ = timed_run(ns, nsteps - 1)
+    assert_finite(ns, label)
+    print(f"[sharded] {label} unsharded, unchained: first step {first * 1e3:.2f} ms, "
+          f"advance({nsteps - 1}) {adv * 1e3:.2f} ms = {(nsteps - 1) / adv:.4f} steps/s "
+          f"({smi})", flush=True)
+    state = ns.state
+    if profile:
+        phase_profile(f"{label}, unsharded unchained", ns)
+    return state
+
+
+def time_halo(label, call, kernels_only, unsharded, plain, nbytes_moved, flops, reps,
+              plain_eager=False):
+    """Device time (CUDA graph) of one sharded call (the edge exchange and
+    one launch per shard), of its launches alone, of the unsharded kernel
+    and of the plain version, beside the bound of the sharded call's work
+    (the unsharded bytes plus the edge planes). ``plain_eager``: the plain
+    version reads a flag back to the host, so it is timed eagerly."""
+    ms = graph_ms(call, **reps)
+    kernels_ms = graph_ms(kernels_only, **reps)
+    unsharded_ms = graph_ms(unsharded, **reps)
+    plain_ms = (cuda_ms(plain, reps["calls"] * reps["replays"]) if plain_eager
+                else graph_ms(plain, **reps))
+    bound_ms, bound_by = bound(nbytes_moved, flops)
+    print(f"[time] {label}: sharded call {ms:.5f} ms on the device (its launches alone "
+          f"{kernels_ms:.5f} ms), unsharded kernel {unsharded_ms:.5f} ms; bound "
+          f"{bound_ms:.5f} ms by {bound_by} ({100 * bound_ms / ms:.1f} % of the call); "
+          f"plain {plain_ms:.5f} ms{' (eager)' if plain_eager else ''}", flush=True)
+    return {"ms": ms, "kernels_ms": kernels_ms, "unsharded_ms": unsharded_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def edge_bytes(edges):
+    return nbytes(*(t for e in edges if e is not None for t in e))
+
+
+def time_halo_solver(entries, ns, reps):
+    """Each halo instance of the sharded solver of ``ns`` at its finest
+    level and current step coefficients: the Poisson modes and the
+    momentum apply; the apply's and the momentum's times go to
+    ``entries``."""
+    impl, ops, grid = ns.impl, ns.impl.ops, ns.device_grid
+    lvl, mesh = impl.mg.levels[0], ns.mesh
+    name = "poisson3d" if mesh.dim == 3 else "poisson2d"
+    n = int(np.prod(mesh.N))
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    p, b = (torch.randn(mesh.N, generator=gen, device="cuda") for _ in range(2))
+    edges = field_edges(lvl.sharded["apply"].layout, p)
+    label = f"{'x'.join(map(str, mesh.N))} on {grid.shape}"
+    for mode in cuda_stencil.POISSON_MODES:
+        args = {"apply": (), "residual": (b,), "smooth": (b, lvl.inv_diag)}[mode]
+        f = lvl.sharded[mode]
+        t = time_halo(
+            f"{name}_halo {mode} {label}", lambda: f(p, *args),
+            lambda: f.launch(p, edges, *args),
+            lambda: getattr(cuda_stencil, name)(mode, p, lvl.coeffs, *args, omega=0.8),
+            lambda: HALO_PLAIN[name](mode, p, lvl.coeffs, f.layout, edges, *args,
+                                     omega=0.8),
+            nbytes(p, p, *args, *coeff_tensors(lvl.coeffs)) + edge_bytes(edges),
+            n * FLOPS_PER_CELL[name][mode], reps)
+        if mode == "apply":
+            entries[name + "_halo"].update(t)
+    del p, b, edges
+    sm, v0f = ops.sharded_momentum, step_v0f(ops, ns.state, ns.t)
+    v = tuple(torch.randn(mesh.N, generator=gen, device="cuda") for _ in range(mesh.dim))
+    ve = tuple(field_edges(sm.layout, x) for x in v)
+    if mesh.dim == 2:
+        W = ops.build_momentum_coeffs_stacked(ns.state["U"], v0f)
+        t = time_halo(
+            f"momentum2d_halo {label} (step planes)", lambda: sm(W, *v),
+            lambda: sm.launch(W, *v, *ve),
+            lambda: cuda_stencil.momentum2d(W, *v, mesh.periodic),
+            lambda: cuda_stencil.momentum2d_halo_plain(W, *v, sm.layout, *ve),
+            nbytes(W, *v, *v) + sum(edge_bytes(e) for e in ve),
+            n * FLOPS_PER_CELL["momentum2d"], reps, plain_eager=True)
+        entries["momentum2d_halo"].update(t)
+        return
+    prepped = sm.prep(ns.state["U"], v0f)
+    f = prepped.factors
+    faces = [*f.U0, *(F for row in f.v0f for F in row)]
+    t = time_halo(
+        f"momentum3d_halo {label} (step factors)", lambda: sm.apply(v, prepped),
+        lambda: sm.launch(v, prepped, ve),
+        lambda: cuda_stencil.momentum3d(sm.bands, f, v),
+        lambda: cuda_stencil.momentum3d_halo_plain(sm.bands, f, v, sm.layout, ve,
+                                                   prepped.face_hi),
+        nbytes(*sm.bands.b, *v, *faces, *v) + sum(edge_bytes(e) for e in ve)
+        + edge_bytes(prepped.face_hi), n * FLOPS_PER_CELL["momentum3d"], reps,
+        plain_eager=True)
+    entries["momentum3d_halo"].update(t)
+
+
+def time_halo_2d_large(entries, reps):
+    """The 2-D halo instances at 4096^2 on (4, 2), where the device and
+    not the host sets the time: the Poisson modes on a wall-bounded
+    level, the momentum apply on random planes (the +-2 planes zero, as
+    off the walls), each checked first."""
+    rng = np.random.default_rng(24)
+    mesh = unit_mesh(4096, False)
+    grid = make_device_grid(2, shape=(4, 2))
+    lvl = mg_mod._build_level(mesh, T_.axis_bcs(mesh, cavity_bcs()), 0.01, torch.float32,
+                              "cuda")
+    check_poisson_halo(entries, "4096^2", grid, mesh, lvl.coeffs, lvl.inv_diag, rng)
+    p, b = (torch.as_tensor(rng.standard_normal(mesh.N), dtype=torch.float32, device="cuda")
+            for _ in range(2))
+    for mode in cuda_stencil.POISSON_MODES:
+        f = build_poisson_sharded(grid, lvl, mode, 0.8)
+        edges = field_edges(f.layout, p)
+        args = {"apply": (), "residual": (b,), "smooth": (b, lvl.inv_diag)}[mode]
+        time_halo(f"poisson2d_halo {mode} 4096x4096 on (4, 2)", lambda: f(p, *args),
+                  lambda: f.launch(p, edges, *args),
+                  lambda: cuda_stencil.poisson2d(mode, p, lvl.coeffs, *args, omega=0.8),
+                  lambda: cuda_stencil.poisson2d_halo_plain(mode, p, lvl.coeffs, f.layout,
+                                                            edges, *args, omega=0.8),
+                  nbytes(p, p, *args, *coeff_tensors(lvl.coeffs)) + edge_bytes(edges),
+                  mesh.N[0] * mesh.N[1] * FLOPS_PER_CELL["poisson2d"][mode], reps)
+    del p, b, lvl
+    W = torch.randn((26, *mesh.N), generator=torch.Generator(device="cuda").manual_seed(24),
+                    device="cuda")
+    W[18:] = 0.0
+    check_momentum2d_halo(entries, "4096^2 random planes", grid, mesh, W, rng)
+    sm = build_momentum2d_sharded(grid, mesh, torch.float32)
+    u, v = (torch.as_tensor(rng.standard_normal(mesh.N), dtype=torch.float32, device="cuda")
+            for _ in range(2))
+    ue, ve = field_edges(sm.layout, u), field_edges(sm.layout, v)
+    time_halo("momentum2d_halo 4096x4096 on (4, 2) (random planes)", lambda: sm(W, u, v),
+              lambda: sm.launch(W, u, v, ue, ve),
+              lambda: cuda_stencil.momentum2d(W, u, v, mesh.periodic),
+              lambda: cuda_stencil.momentum2d_halo_plain(W, u, v, sm.layout, ue, ve),
+              nbytes(W, u, v, u, v) + edge_bytes(ue) + edge_bytes(ve),
+              mesh.N[0] * mesh.N[1] * FLOPS_PER_CELL["momentum2d"], reps, plain_eager=True)
+
+
+def phase_sharded(smi, entries, profile=False):
+    """The domain-decomposed step (parallel/, NS.shard, -parallel_grid):
+    the halo instances against their plain versions and the unsharded
+    kernels on every periodic/wall combination of the reference's tests;
+    the 256^2 Re 100 cavity on (4, 2), 21 steps, and BASELINE #5 (the
+    512x256x256 channel, f32 production(3, 8, 6)) on (2, 2, 2), 11 steps,
+    each against the unsharded unchained run of the same steps
+    (SHARDED_RTOL), the 512 run also under its retention gate, with the
+    halo instances checked at their shapes first and timed after; two
+    planted edge-plane faults; the app with -parallel_grid in 2-D and 3-D.
+    ``profile``: torch.profiler breakdowns of the sharded and unsharded
+    runs. Returns the launches of the two sharded runs."""
+    t0 = time.perf_counter()
+    check_halo_combos(entries)
+
+    def cavity():
+        ns = setup_cavity_2d(N=256, Re=100.0, dt=0.01, device="cuda")
+        ns.impl.cfg = CNLinearConfig.production()
+        return ns
+
+    ref = unsharded_run(cavity, 21, "cavity 256^2 Re 100 f32 production", smi, profile)
+    ns, launches2d, _ = sharded_run(cavity, (4, 2), 21,
+                                    "cavity 256^2 Re 100 f32 production", smi, entries, ref,
+                                    profile)
+    time_halo_solver(entries, ns, {"calls": 50, "replays": 20})
+    del ns, ref
+    time_halo_2d_large(entries, {"calls": 5, "replays": 4})
+
+    def channel():
+        ns = setup_channel_3d(N=(512, 256, 256), dt=5e-5, stretch_y=2.0, device="cuda")
+        ns.impl.cfg = CNLinearConfig.production(3, 8, 6)
+        return ns
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    label = "channel 512x256x256 stretch_y 2.0 dt 5e-5 f32 production(3, 8, 6)"
+    ref = unsharded_run(channel, 11, label, smi, profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ns, launches3d, u0 = sharded_run(channel, (2, 2, 2), 11, label, smi, entries, ref,
+                                     profile)
+    del ref
+    retention = float(ns.state["v"][0].abs().mean()) / u0
+    print(f"[sharded] {label} on (2, 2, 2): retention {retention:.5f} over 11 steps "
+          f"(gate >= {RETENTION_MIN})", flush=True)
+    if not retention >= RETENTION_MIN:
+        raise AssertionError(f"sharded channel512 mean flow decayed: retention {retention}")
+    planted_halo_faults(ns)
+    time_halo_solver(entries, ns, {"calls": 5, "replays": 4})
+    del ns
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for argv in (["-cart_grid_x", "64", "-cart_grid_y", "64", "-parallel_grid", "2x2"],
+                 ["-cart_dim", "3", "-cart_grid_x", "32", "-cart_grid_y", "32",
+                  "-cart_grid_z", "32", "-parallel_grid", "2x2x2"]):
+        argv = ["-device", "cuda", *argv, "-ns_max_steps", "3", "-ns_monitor"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            ns = app.build(argv)
+        check_sharded_solver(entries, f"app {' '.join(argv[2:-3])}", ns)
+        del ns
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = app.main(argv)
+        out = buf.getvalue()
+        print(out, end="")
+        if rc != 0 or "done: CONVERGED_ITS" not in out or "parallel: 1 devices" not in out:
+            raise AssertionError(f"sharded app run {argv} did not end CONVERGED_ITS (rc {rc})")
+    print(f"[sharded] done in {time.perf_counter() - t0:.2f} s", flush=True)
+    return launches2d, launches3d
+
+
 def phase_profile(label, ns, cfg=None):
     """Device time by kernel over 3 warm steps of ``ns`` under ``cfg``
     (the production preset if None)."""
@@ -1565,7 +2062,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also print a torch.profiler breakdown of 3 steps of "
                          "the 2-D cavity, the 3-D cavity, the 128^3 channel "
-                         "(float32 and bf16) and both 512x256x256 channel runs")
+                         "(float32 and bf16), both 512x256x256 channel runs, and "
+                         "the sharded and unsharded runs of phase_sharded")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -1594,6 +2092,12 @@ def main(argv=None) -> int:
         # banded operators is timed beside it (unfused_ms)
         e.update(name=name, replaces="fluca_tpu/ops/pallas_chain3d.py:289", checks=0)
         entries[name] = e
+    for kernel, line in HALO_REPLACES.items():
+        e = entry(kernel, 0, (torch.float32, torch.float64))
+        # the unsharded kernel's time is beside it (unsharded_ms)
+        e.update(name=kernel + "_halo", checks=0, max_abs_vs_unsharded=0.0,
+                 replaces=f"fluca_tpu/parallel/pallas_sharded.py:{line}")
+        entries[e["name"]] = e
     check_chain_pairs(entries)
     check_poisson(entries["poisson2d"])
     check_momentum(entries["momentum2d"])
@@ -1623,8 +2127,13 @@ def main(argv=None) -> int:
     phase_channel512(smi, entries, profile=args.profile)
     phase_channel512_bf16(smi, entries, profile=args.profile)
     phase_app3d(entries)
-    for name in CHAIN_NAMES:
+    launches_halo2d, launches_halo3d = phase_sharded(smi, entries, profile=args.profile)
+    for name in (*CHAIN_NAMES, *(k + "_halo" for k in HALO)):
         report(name, entries[name]["checks"], entries[name])
+    for k in HALO:
+        print(f"[sharded] {k}_halo: max abs difference from the unsharded kernel "
+              f"{entries[k + '_halo']['max_abs_vs_unsharded']:.3e} over "
+              f"{entries[k + '_halo']['checks']} checks", flush=True)
     if args.profile:
         phase_profile("cavity 256^2",
                       setup_cavity_2d(N=256, Re=100.0, dt=0.01, device="cuda"))
@@ -1638,22 +2147,30 @@ def main(argv=None) -> int:
     # each instance's launches in the main-path run that carries it: both
     # instances of a kernel from the same cell, the float32 and the bf16
     # preconditioner's run, at the shape of the kernel's times
-    runs = {"2d": ("256x256", "cavity 256^2, 21 steps", launches),
-            "2d_bf16": ("256x256", "cavity 256^2 bf16 (both), 21 steps",
+    runs = {"2d": ("256x256", "cavity 256^2, 21 steps", 21, launches),
+            "2d_bf16": ("256x256", "cavity 256^2 bf16 (both), 21 steps", 21,
                         launches_bf16),
-            "3d": ("128x128x128", "channel 128^3, 11 steps", launches3d),
-            "3d_bf16": ("128x128x128", "channel 128^3 bf16 (both), 11 steps",
-                        launches3d_bf16)}
+            "3d": ("128x128x128", "channel 128^3, 11 steps", 11, launches3d),
+            "3d_bf16": ("128x128x128", "channel 128^3 bf16 (both), 11 steps", 11,
+                        launches3d_bf16),
+            "2d_halo": ("256x256", "cavity 256^2 on (4, 2), 21 steps", 21,
+                        launches_halo2d),
+            "3d_halo": ("512x256x256", "channel 512x256x256 on (2, 2, 2), 11 steps", 11,
+                        launches_halo3d)}
     for name, e in entries.items():
-        shape, run, counts = runs[("3d" if "3d" in name else "2d")
-                                  + ("_bf16" if name.endswith("_bf16") else "")]
-        e.update(shape=shape, launches_run=run, launches=counts[name])
+        shape, run, steps, counts = runs[("3d" if "3d" in name else "2d")
+                                         + ("_bf16" if name.endswith("_bf16") else "")
+                                         + ("_halo" if name.endswith("_halo") else "")]
+        e.update(shape=shape, launches_run=run, launches=counts[name],
+                 launches_per_step=round(counts[name] / steps, 2))
     phase_ledger()
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    keys = ("name", "route", "source", "replaces", "launches", "launches_run", "shape",
+    keys = ("name", "route", "source", "replaces", "launches", "launches_run",
+            "launches_per_step", "shape",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "unfused_ms", "unfused_launches")
+            "unfused_ms", "unfused_launches", "kernels_ms", "unsharded_ms",
+            "max_abs_vs_unsharded")
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                   for e in entries.values()]}))
     print(smi)

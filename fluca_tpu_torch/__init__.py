@@ -11,6 +11,8 @@ which stays the reference), module for module:
   with the ABF preconditioner.
 - ``fluca_tpu_torch.solvers`` — Krylov methods and geometric
   multigrid.
+- ``fluca_tpu_torch.parallel`` — the domain-decomposed step: device
+  grids, the neighbour exchange and the sharded kernels.
 
 Host tables are built in float64 numpy exactly as the reference builds
 them, then moved to the device in the compute dtype. Every tensor is

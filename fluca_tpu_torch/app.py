@@ -7,8 +7,10 @@ Mesh+NS from the options database, solves, and reports. Run e.g.:
       -cart_grid_y 256 -ns_max_steps 100 -ns_monitor
 
 ``-device`` names the torch device (default ``cuda``; a missing card is
-an error, never a silent switch to the CPU). Options whose subsystems
-are not ported yet raise NotImplementedError.
+an error, never a silent switch to the CPU). ``-parallel_grid auto |
+AxB[xC]`` runs the solver over a device grid whose shards share that
+device (``NS.shard``). Options whose subsystems are not ported yet raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,12 +26,11 @@ from fluca_tpu_torch.utils.options import global_options
 # options of subsystems still to be ported -> the ROADMAP item that
 # brings them
 _NOT_PORTED = {
-    "checkpoint": "checkpoint I/O (ROADMAP queue 1, item 8)",
-    "load_checkpoint": "checkpoint I/O (ROADMAP queue 1, item 8)",
-    "mesh_cart_create_from_file": "CGNS I/O (ROADMAP queue 1, item 8)",
-    "ns_load_solution_from_file": "CGNS I/O (ROADMAP queue 1, item 8)",
-    "ns_view_solution": "CGNS I/O (ROADMAP queue 1, item 8)",
-    "parallel_grid": "the multi-device path (ROADMAP queue 1, item 10)",
+    "checkpoint": "checkpoint I/O (ROADMAP queue 1, item 2)",
+    "load_checkpoint": "checkpoint I/O (ROADMAP queue 1, item 2)",
+    "mesh_cart_create_from_file": "CGNS I/O (ROADMAP queue 1, item 2)",
+    "ns_load_solution_from_file": "CGNS I/O (ROADMAP queue 1, item 2)",
+    "ns_view_solution": "CGNS I/O (ROADMAP queue 1, item 2)",
 }
 
 
@@ -66,6 +67,18 @@ def build(argv) -> NS:
     )
     ns.set_from_options()
     ns.setup()
+
+    # domain decomposition (the reference's mpiexec -n N x
+    # -cart_ranks_* path): -parallel_grid auto | AxB[xC]. The shards share
+    # the solver's one device; "auto" factors the devices given, one.
+    if opts.has("parallel_grid"):
+        spec = opts.get_str("parallel_grid")
+        shape = (None if spec in ("", "auto", "true")
+                 else tuple(int(x) for x in spec.split("x")))
+        ns.shard(shape=shape)
+        grid = ns.device_grid
+        print(f"parallel: {len(set(grid.devices))} devices, grid "
+              f"{dict(zip(grid.axis_names, grid.shape))}")
     return ns
 
 

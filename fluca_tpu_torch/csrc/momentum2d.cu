@@ -104,3 +104,95 @@ int launch(const void* w, const void* u, const void* v, void* out_u,
 FLUCA_MOMENTUM2D_EXPORT(f32, float)
 FLUCA_MOMENTUM2D_EXPORT(f64, double)
 FLUCA_MOMENTUM2D_EXPORT(bf16, __nv_bfloat16)
+
+// ---------------------------------------------------------------------
+// Halo instance (f32, f64): one shard's block, for the domain-decomposed
+// step. Replaces the TPU kernel fluca_tpu/parallel/pallas_sharded.py
+// build_momentum2d_sharded, which runs momentum2d_raw_call per shard with
+// the axis-0 edge rows and the +-1 halo columns from ppermute. Same
+// arithmetic as the kernel above, in the same order, so a block matches
+// the unsharded kernel bit for bit; only the source of the neighbour
+// reads differs (stencil_common.cuh halo_load). The plane stack W is
+// read in the block's box (planes ng0 * ng1 apart); u and v take edge
+// planes on each halo axis. The +-2 planes are nonzero only on the rows
+// of a global wall, so a +-2 read that falls past the edge plane (local
+// index -2 or n + 1) reads 0 and meets a zero coefficient when every
+// local extent on a halo axis is at least 3 (the wrapper refuses less;
+// the plain version asserts the zero). Bound and design as above.
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(fluca::kBlockX * fluca::kBlockY)
+momentum2d_halo_kernel(const T* __restrict__ W, const fluca::HaloField<T, 2> u,
+                       const fluca::HaloField<T, 2> v, T* __restrict__ out_u,
+                       T* __restrict__ out_v, const fluca::HaloGeom<2> g) {
+    using F = fluca::Field<T>;
+    using C = T;
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    const int i = blockIdx.y * blockDim.y + threadIdx.y;
+    if (i >= g.n[0] || j >= g.n[1]) return;
+    const int pos[2] = {i, j};
+    const size_t n = (size_t)g.ng[0] * g.ng[1];
+    const long long idx = fluca::halo_offset(g, pos);
+    const T* Wc = W + idx;
+#define FLUCA_W(k) F::load(Wc + (size_t)(k) * n)
+#define FLUCA_AT(x, di, dj) \
+    ((di) != 0 ? fluca::halo_load(x, g, pos, 0, di) : fluca::halo_load(x, g, pos, 1, dj))
+
+    const C uc = F::load(u.x + idx);
+    const C vc = F::load(v.x + idx);
+
+    const C ou = FLUCA_W(0) * FLUCA_AT(u, -1, 0) + FLUCA_W(1) * uc +
+                 FLUCA_W(2) * FLUCA_AT(u, 1, 0) + FLUCA_W(3) * FLUCA_AT(u, 0, -1) +
+                 FLUCA_W(4) * uc + FLUCA_W(5) * FLUCA_AT(u, 0, 1) +
+                 FLUCA_W(6) * FLUCA_AT(v, 0, -1) + FLUCA_W(7) * vc +
+                 FLUCA_W(8) * FLUCA_AT(v, 0, 1) + FLUCA_W(18) * FLUCA_AT(u, -2, 0) +
+                 FLUCA_W(19) * FLUCA_AT(u, 2, 0) + FLUCA_W(20) * FLUCA_AT(u, 0, -2) +
+                 FLUCA_W(21) * FLUCA_AT(u, 0, 2);
+    const C ov = FLUCA_W(9) * FLUCA_AT(v, -1, 0) + FLUCA_W(10) * vc +
+                 FLUCA_W(11) * FLUCA_AT(v, 1, 0) + FLUCA_W(12) * FLUCA_AT(v, 0, -1) +
+                 FLUCA_W(13) * vc + FLUCA_W(14) * FLUCA_AT(v, 0, 1) +
+                 FLUCA_W(15) * FLUCA_AT(u, -1, 0) + FLUCA_W(16) * uc +
+                 FLUCA_W(17) * FLUCA_AT(u, 1, 0) + FLUCA_W(22) * FLUCA_AT(v, -2, 0) +
+                 FLUCA_W(23) * FLUCA_AT(v, 2, 0) + FLUCA_W(24) * FLUCA_AT(v, 0, -2) +
+                 FLUCA_W(25) * FLUCA_AT(v, 0, 2);
+#undef FLUCA_W
+#undef FLUCA_AT
+    F::store(out_u + idx, ou);
+    F::store(out_v + idx, ov);
+}
+
+// ptrs: W u v out_u out_v | u lo0 hi0 lo1 hi1 | v lo0 hi0 lo1 hi1 (null
+// on an axis that is not a halo axis); geom: read_halo_geom<2>.
+template <typename T>
+int launch_halo(const void* const* ptrs, const long long* geom, void* stream) {
+    fluca::HaloGeom<2> g;
+    fluca::read_halo_geom(geom, g);
+    fluca::HaloField<T, 2> f[2];
+    for (int e = 0; e < 2; ++e) {
+        f[e].x = static_cast<const T*>(ptrs[1 + e]);
+        for (int a = 0; a < 2; ++a) {
+            f[e].lo[a] = static_cast<const T*>(ptrs[5 + 4 * e + 2 * a]);
+            f[e].hi[a] = static_cast<const T*>(ptrs[6 + 4 * e + 2 * a]);
+        }
+    }
+    const dim3 block(fluca::kBlockX, fluca::kBlockY);
+    const dim3 grid = fluca::grid2d(g.n[0], g.n[1]);
+    if (grid.y > fluca::kMaxGridYZ) return (int)cudaErrorInvalidConfiguration;
+    momentum2d_halo_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(ptrs[0]), f[0], f[1],
+        static_cast<T*>(const_cast<void*>(ptrs[3])),
+        static_cast<T*>(const_cast<void*>(ptrs[4])), g);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define FLUCA_MOMENTUM2D_HALO_EXPORT(SFX, T)                                \
+    extern "C" int fluca_momentum2d_halo_##SFX(                             \
+        const void* const* ptrs, const long long* geom, void* stream) {     \
+        return launch_halo<T>(ptrs, geom, stream);                          \
+    }
+
+FLUCA_MOMENTUM2D_HALO_EXPORT(f32, float)
+FLUCA_MOMENTUM2D_HALO_EXPORT(f64, double)

@@ -201,3 +201,184 @@ static_assert(conv_row(1, 1, 1) == kBandRows - 1, "band row packing");
 FLUCA_MOMENTUM3D_EXPORT(f32, float)
 FLUCA_MOMENTUM3D_EXPORT(f64, double)
 FLUCA_MOMENTUM3D_EXPORT(bf16, __nv_bfloat16)
+
+// ---------------------------------------------------------------------
+// Halo instance (f32, f64): one shard's block, for the domain-decomposed
+// step. Replaces the TPU kernel fluca_tpu/parallel/pallas_sharded.py
+// build_momentum_sharded, which runs momentum3d_raw_calls per shard with
+// edge planes, P2/M2 planes and face patches from ppermute. Same
+// arithmetic as the kernel above, in the same order, so a block matches
+// the unsharded kernel bit for bit; only the source of the reads
+// differs:
+//   - v is read through stencil_common.cuh halo_load, with edge planes
+//     on each halo axis. The +-2 Laplacian rows are nonzero only on the
+//     rows of a global wall, so a +-2 read past the edge plane meets a
+//     zero band entry (and is skipped) when every local extent on a
+//     halo axis is at least 3 (the wrapper refuses less; the plain
+//     version asserts the zero);
+//   - the band arrays are per global index: each pointer is at the
+//     block's first index, rows ng apart;
+//   - the face arrays are read in their own boxes (face q of the block
+//     is global face box + q), with their own strides. The high factor
+//     of the block's last cell along a halo axis is the face past the
+//     block: the high neighbour's face 0, or global face N at a wall
+//     (the face array's last), or face 0 on a periodic axis (whose face
+//     array has N entries). It comes in as one hi face plane per face
+//     array of that axis, the counterpart of the reference's
+//     lo_and_hilast and its fe0/pa1/pa2 patches.
+// Bound and design as above.
+namespace {
+
+template <typename T>
+struct HaloArgs {
+    const T* band[3];               // (27, ng_a), at the block's first index
+    fluca::HaloField<T, 3> v[3];    // cell fields
+    const T* fu[3];                 // U0[a] at the block's first face
+    const T* fv[9];                 // v0f[a][c] at 3*a + c
+    const T* fuh[3];                // hi face plane of U0[a] (halo axes)
+    const T* fvh[9];                // hi face plane of v0f[a][c]
+    T* out[3];
+    fluca::HaloGeom<3> g;
+    long long fst[3][3];            // fst[a][b]: strides of the axis-a face arrays
+    long long fest[3][3];           // fest[a][b]: strides of their hi planes
+};
+
+template <typename T>
+__global__ void __launch_bounds__(fluca::kBlockX * fluca::kBlockY)
+momentum3d_halo_kernel(const HaloArgs<T> h) {
+    using F = fluca::Field<T>;
+    using C = T;
+    const fluca::HaloGeom<3>& g = h.g;
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    const int j = blockIdx.y * blockDim.y + threadIdx.y;
+    const int i = blockIdx.z;
+    if (j >= g.n[1] || k >= g.n[2]) return;
+    const int pos[3] = {i, j, k};
+    const long long idx = fluca::halo_offset(g, pos);
+
+    C vc[3], acc[3];
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+        vc[e] = F::load(h.v[e].x + idx);
+        acc[e] = vc[e];
+    }
+
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+        const int n = g.ng[ax];
+        const C* B = h.band[ax] + pos[ax];
+        auto band = [&](int r) { return __ldg(B + (size_t)r * n); };
+        auto at = [&](int e, int off) {
+            return fluca::halo_load(h.v[e], g, pos, ax, off);
+        };
+
+        // low / high face of this cell along ax
+        long long lo = 0;
+#pragma unroll
+        for (int b = 0; b < 3; ++b) lo += pos[b] * h.fst[ax][b];
+        const T* FU = h.fu[ax];
+        const T* FUh = FU;
+        long long hi = lo + h.fst[ax][ax];
+        if (pos[ax] + 1 == g.n[ax]) {
+            if (g.mode[ax] == fluca::kPeriodic) {
+                hi = lo - pos[ax] * h.fst[ax][ax];
+            } else if (g.mode[ax] == fluca::kHalo) {
+                hi = 0;
+#pragma unroll
+                for (int b = 0; b < 3; ++b)
+                    if (b != ax) hi += pos[b] * h.fest[ax][b];
+                FUh = h.fuh[ax];
+            }
+        }
+        const bool hi_plane = FUh != FU;
+        const C FlU = F::load(FU + lo);
+        const C FrU = F::load(FUh + hi);
+
+        C vm[3], vp[3];
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+            vm[e] = at(e, -1);
+            vp[e] = at(e, 1);
+        }
+        // normal-variant sums on v_ax, shared by the three components
+        const C nl = band(conv_row(1, 0, -1)) * vm[ax] +
+                     band(conv_row(1, 0, 0)) * vc[ax] +
+                     band(conv_row(1, 0, 1)) * vp[ax];
+        const C nr = band(conv_row(1, 1, -1)) * vm[ax] +
+                     band(conv_row(1, 1, 0)) * vc[ax] +
+                     band(conv_row(1, 1, 1)) * vp[ax];
+
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            const T* FV = h.fv[3 * ax + c];
+            const C Flv = F::load(FV + lo);
+            const C Frv = F::load((hi_plane ? h.fvh[3 * ax + c] : FV) + hi);
+            C s = band(lap_row(c, -1)) * vm[c] + band(lap_row(c, 0)) * vc[c] +
+                  band(lap_row(c, 1)) * vp[c];
+            const C wm2 = band(lap_row(c, -2));
+            if (wm2 != C(0)) s += wm2 * at(c, -2);
+            const C wp2 = band(lap_row(c, 2));
+            if (wp2 != C(0)) s += wp2 * at(c, 2);
+            if (c == ax) {
+                s += (Flv + FlU) * nl + (Frv + FrU) * nr;
+            } else {
+                const C tl = band(conv_row(0, 0, -1)) * vm[c] +
+                             band(conv_row(0, 0, 0)) * vc[c] +
+                             band(conv_row(0, 0, 1)) * vp[c];
+                const C tr = band(conv_row(0, 1, -1)) * vm[c] +
+                             band(conv_row(0, 1, 0)) * vc[c] +
+                             band(conv_row(0, 1, 1)) * vp[c];
+                s += Flv * nl + Frv * nr + FlU * tl + FrU * tr;
+            }
+            acc[c] += s;
+        }
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) F::store(h.out[c] + idx, acc[c]);
+}
+
+// ptrs (51): b0 b1 b2 | v0 v1 v2 | U0[0..2] | v0f[a][c] (a-major, 9) |
+// out0 out1 out2 | v[e] lo0 hi0 lo1 hi1 lo2 hi2 for e = 0..2 (18) |
+// hi face planes of U0[0..2] | of v0f[a][c] (9); null where an axis is
+// not a halo axis. geom: read_halo_geom<3>, then fst and fest (3 x 3
+// each, row-major).
+template <typename T>
+int launch_halo(const void* const* ptrs, const long long* geom, void* stream) {
+    HaloArgs<T> h;
+    int m = fluca::read_halo_geom(geom, h.g);
+    for (int a = 0; a < 3; ++a)
+        for (int b = 0; b < 3; ++b) h.fst[a][b] = geom[m++];
+    for (int a = 0; a < 3; ++a)
+        for (int b = 0; b < 3; ++b) h.fest[a][b] = geom[m++];
+    auto in = [&](int q) { return static_cast<const T*>(ptrs[q]); };
+    int q = 0;
+    for (int a = 0; a < 3; ++a) h.band[a] = in(q++);
+    for (int e = 0; e < 3; ++e) h.v[e].x = in(q++);
+    for (int a = 0; a < 3; ++a) h.fu[a] = in(q++);
+    for (int f = 0; f < 9; ++f) h.fv[f] = in(q++);
+    for (int c = 0; c < 3; ++c) h.out[c] = static_cast<T*>(const_cast<void*>(ptrs[q++]));
+    for (int e = 0; e < 3; ++e)
+        for (int a = 0; a < 3; ++a) {
+            h.v[e].lo[a] = in(q++);
+            h.v[e].hi[a] = in(q++);
+        }
+    for (int a = 0; a < 3; ++a) h.fuh[a] = in(q++);
+    for (int f = 0; f < 9; ++f) h.fvh[f] = in(q++);
+    const dim3 block(fluca::kBlockX, fluca::kBlockY);
+    const dim3 grid = fluca::grid3d(h.g.n[0], h.g.n[1], h.g.n[2]);
+    if (grid.y > fluca::kMaxGridYZ || grid.z > fluca::kMaxGridYZ)
+        return (int)cudaErrorInvalidConfiguration;
+    momentum3d_halo_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(h);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define FLUCA_MOMENTUM3D_HALO_EXPORT(SFX, T)                                \
+    extern "C" int fluca_momentum3d_halo_##SFX(                             \
+        const void* const* ptrs, const long long* geom, void* stream) {     \
+        return launch_halo<T>(ptrs, geom, stream);                          \
+    }
+
+FLUCA_MOMENTUM3D_HALO_EXPORT(f32, float)
+FLUCA_MOMENTUM3D_HALO_EXPORT(f64, double)

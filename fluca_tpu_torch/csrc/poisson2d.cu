@@ -128,3 +128,112 @@ int launch(int mode, const void* p, const void* b, const void* w,
 FLUCA_POISSON2D_EXPORT(f32, float)
 FLUCA_POISSON2D_EXPORT(f64, double)
 FLUCA_POISSON2D_EXPORT(bf16, __nv_bfloat16)
+
+// ---------------------------------------------------------------------
+// Halo instance (f32, f64): one shard's block, for the domain-decomposed
+// step. Replaces the TPU kernel fluca_tpu/parallel/pallas_sharded.py
+// build_poisson_sharded (2-D), which runs poisson2d_raw_call per shard
+// with edge rows and columns from ppermute. Same arithmetic as the
+// kernel above, in the same order, so a block matches the unsharded
+// kernel bit for bit; only the source of the neighbour reads differs
+// (stencil_common.cuh halo_load). The coefficient arrays are per global
+// index: each pointer is at the block's first index, rows ng apart.
+// Bound and design as above: the block and its edge rows and columns
+// are read once.
+namespace {
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(fluca::kBlockX * fluca::kBlockY)
+poisson2d_halo_kernel(const fluca::HaloField<T, 2> p, const T* __restrict__ b,
+                      const T* __restrict__ w, const T* __restrict__ rx,
+                      const T* __restrict__ ry, const T* __restrict__ cy,
+                      const T* __restrict__ cyb, T* __restrict__ out,
+                      const fluca::HaloGeom<2> g, T omega) {
+    using F = fluca::Field<T>;
+    using C = T;
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    const int i = blockIdx.y * blockDim.y + threadIdx.y;
+    if (i >= g.n[0] || j >= g.n[1]) return;
+    const int pos[2] = {i, j};
+    const long long idx = fluca::halo_offset(g, pos);
+    const int N0 = g.ng[0], N1 = g.ng[1];
+
+    const C pc = F::load(p.x + idx);
+    const C up = fluca::halo_load(p, g, pos, 0, -1);
+    const C dn = fluca::halo_load(p, g, pos, 0, 1);
+    const C lf = fluca::halo_load(p, g, pos, 1, -1);
+    const C rt = fluca::halo_load(p, g, pos, 1, 1);
+
+    const C xterm = (__ldg(rx + i) * up + __ldg(rx + N0 + i) * pc +
+                     __ldg(rx + 2 * N0 + i) * dn) *
+                    __ldg(cy + j);
+    const C yterm = __ldg(ry + i) *
+                    (__ldg(cyb + j) * lf + __ldg(cyb + N1 + j) * pc +
+                     __ldg(cyb + 2 * N1 + j) * rt);
+    const C sp = xterm + yterm;
+
+    if (MODE == 0) {
+        F::store(out + idx, sp);
+    } else if (MODE == 1) {
+        F::store(out + idx, F::load(b + idx) - sp);
+    } else {
+        F::store(out + idx,
+                 pc + omega * F::load(w + idx) * (F::load(b + idx) - sp));
+    }
+}
+
+// ptrs: p b w rx ry cy cyb out | p's edge planes lo0 hi0 lo1 hi1 (null
+// on an axis that is not a halo axis); geom: read_halo_geom<2>.
+template <typename T>
+int launch_halo(int mode, const void* const* ptrs, const long long* geom,
+                double omega, void* stream) {
+    fluca::HaloGeom<2> g;
+    fluca::read_halo_geom(geom, g);
+    fluca::HaloField<T, 2> p;
+    p.x = static_cast<const T*>(ptrs[0]);
+    for (int a = 0; a < 2; ++a) {
+        p.lo[a] = static_cast<const T*>(ptrs[8 + 2 * a]);
+        p.hi[a] = static_cast<const T*>(ptrs[9 + 2 * a]);
+    }
+    const T* B = static_cast<const T*>(ptrs[1]);
+    const T* W = static_cast<const T*>(ptrs[2]);
+    const T* RX = static_cast<const T*>(ptrs[3]);
+    const T* RY = static_cast<const T*>(ptrs[4]);
+    const T* CY = static_cast<const T*>(ptrs[5]);
+    const T* CYB = static_cast<const T*>(ptrs[6]);
+    T* O = static_cast<T*>(const_cast<void*>(ptrs[7]));
+    const dim3 block(fluca::kBlockX, fluca::kBlockY);
+    const dim3 grid = fluca::grid2d(g.n[0], g.n[1]);
+    if (grid.y > fluca::kMaxGridYZ) return (int)cudaErrorInvalidConfiguration;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const T om = static_cast<T>(omega);
+    switch (mode) {
+        case 0:
+            poisson2d_halo_kernel<T, 0><<<grid, block, 0, s>>>(
+                p, B, W, RX, RY, CY, CYB, O, g, om);
+            break;
+        case 1:
+            poisson2d_halo_kernel<T, 1><<<grid, block, 0, s>>>(
+                p, B, W, RX, RY, CY, CYB, O, g, om);
+            break;
+        case 2:
+            poisson2d_halo_kernel<T, 2><<<grid, block, 0, s>>>(
+                p, B, W, RX, RY, CY, CYB, O, g, om);
+            break;
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define FLUCA_POISSON2D_HALO_EXPORT(SFX, T)                                 \
+    extern "C" int fluca_poisson2d_halo_##SFX(                              \
+        int mode, const void* const* ptrs, const long long* geom,           \
+        double omega, void* stream) {                                       \
+        return launch_halo<T>(mode, ptrs, geom, omega, stream);             \
+    }
+
+FLUCA_POISSON2D_HALO_EXPORT(f32, float)
+FLUCA_POISSON2D_HALO_EXPORT(f64, double)

@@ -143,3 +143,111 @@ int launch(int mode, const void* p, const void* b, const void* w,
 FLUCA_POISSON3D_EXPORT(f32, float)
 FLUCA_POISSON3D_EXPORT(f64, double)
 FLUCA_POISSON3D_EXPORT(bf16, __nv_bfloat16)
+
+// ---------------------------------------------------------------------
+// Halo instance (f32, f64): one shard's block, for the domain-decomposed
+// step. Replaces the TPU kernel fluca_tpu/parallel/pallas_sharded.py
+// build_poisson_sharded (3-D), which runs poisson3d_raw_call per shard
+// with edge planes from ppermute. Same arithmetic as the kernel above,
+// in the same order, so a block matches the unsharded kernel bit for
+// bit; only the source of the neighbour reads differs
+// (stencil_common.cuh halo_load). The coefficient arrays are per global
+// index: each pointer is at the block's first index, A0, C1, C2 with
+// rows ng apart. Bound and design as above; the edge planes add at most
+// two planes per split axis to the bytes read.
+namespace {
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(fluca::kBlockX * fluca::kBlockY)
+poisson3d_halo_kernel(const fluca::HaloField<T, 3> p, const T* __restrict__ b,
+                      const T* __restrict__ w, const T* __restrict__ a0,
+                      const T* __restrict__ c1, const T* __restrict__ c2,
+                      const T* __restrict__ h0, const T* __restrict__ h1,
+                      const T* __restrict__ h2, T* __restrict__ out,
+                      const fluca::HaloGeom<3> g, T omega) {
+    using F = fluca::Field<T>;
+    using C = T;
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    const int j = blockIdx.y * blockDim.y + threadIdx.y;
+    const int i = blockIdx.z;
+    if (j >= g.n[1] || k >= g.n[2]) return;
+    const int pos[3] = {i, j, k};
+    const long long idx = fluca::halo_offset(g, pos);
+    const int N0 = g.ng[0], N1 = g.ng[1], N2 = g.ng[2];
+#define FLUCA_P(ax, off) fluca::halo_load(p, g, pos, ax, off)
+
+    const C pc = F::load(p.x + idx);
+    const C s0 = __ldg(a0 + i) * FLUCA_P(0, -1) + __ldg(a0 + N0 + i) * pc +
+                 __ldg(a0 + 2 * N0 + i) * FLUCA_P(0, 1);
+    const C s1 = __ldg(c1 + j) * FLUCA_P(1, -1) + __ldg(c1 + N1 + j) * pc +
+                 __ldg(c1 + 2 * N1 + j) * FLUCA_P(1, 1);
+    const C s2 = __ldg(c2 + k) * FLUCA_P(2, -1) + __ldg(c2 + N2 + k) * pc +
+                 __ldg(c2 + 2 * N2 + k) * FLUCA_P(2, 1);
+#undef FLUCA_P
+    const C hj = __ldg(h1 + j);
+    const C hk = __ldg(h2 + k);
+    const C sp = hj * hk * s0 + __ldg(h0 + i) * (hk * s1 + hj * s2);
+
+    if (MODE == 0) {
+        F::store(out + idx, sp);
+    } else if (MODE == 1) {
+        F::store(out + idx, F::load(b + idx) - sp);
+    } else {
+        F::store(out + idx,
+                 pc + omega * F::load(w + idx) * (F::load(b + idx) - sp));
+    }
+}
+
+// ptrs: p b w a0 c1 c2 h0 h1 h2 out | p's edge planes lo0 hi0 lo1 hi1
+// lo2 hi2 (null on an axis that is not a halo axis); geom:
+// read_halo_geom<3>.
+template <typename T>
+int launch_halo(int mode, const void* const* ptrs, const long long* geom,
+                double omega, void* stream) {
+    fluca::HaloGeom<3> g;
+    fluca::read_halo_geom(geom, g);
+    fluca::HaloField<T, 3> p;
+    p.x = static_cast<const T*>(ptrs[0]);
+    for (int a = 0; a < 3; ++a) {
+        p.lo[a] = static_cast<const T*>(ptrs[10 + 2 * a]);
+        p.hi[a] = static_cast<const T*>(ptrs[11 + 2 * a]);
+    }
+    const T* c[8];  // b w a0 c1 c2 h0 h1 h2
+    for (int m = 0; m < 8; ++m) c[m] = static_cast<const T*>(ptrs[1 + m]);
+    T* O = static_cast<T*>(const_cast<void*>(ptrs[9]));
+    const dim3 block(fluca::kBlockX, fluca::kBlockY);
+    const dim3 grid = fluca::grid3d(g.n[0], g.n[1], g.n[2]);
+    if (grid.y > fluca::kMaxGridYZ || grid.z > fluca::kMaxGridYZ)
+        return (int)cudaErrorInvalidConfiguration;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const T om = static_cast<T>(omega);
+    switch (mode) {
+        case 0:
+            poisson3d_halo_kernel<T, 0><<<grid, block, 0, s>>>(
+                p, c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], O, g, om);
+            break;
+        case 1:
+            poisson3d_halo_kernel<T, 1><<<grid, block, 0, s>>>(
+                p, c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], O, g, om);
+            break;
+        case 2:
+            poisson3d_halo_kernel<T, 2><<<grid, block, 0, s>>>(
+                p, c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], O, g, om);
+            break;
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define FLUCA_POISSON3D_HALO_EXPORT(SFX, T)                                 \
+    extern "C" int fluca_poisson3d_halo_##SFX(                              \
+        int mode, const void* const* ptrs, const long long* geom,           \
+        double omega, void* stream) {                                       \
+        return launch_halo<T>(mode, ptrs, geom, omega, stream);             \
+    }
+
+FLUCA_POISSON3D_HALO_EXPORT(f32, float)
+FLUCA_POISSON3D_HALO_EXPORT(f64, double)

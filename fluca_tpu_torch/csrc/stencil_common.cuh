@@ -93,4 +93,98 @@ inline dim3 grid3d(int N0, int N1, int N2) {
                 N0);
 }
 
+// ---------------------------------------------------------------------
+// Halo instances: one shard's block of a domain-decomposed grid
+// (fluca_tpu_torch/parallel/sharded.py).
+//
+// A halo kernel computes the stencil on one block (a box of extents n)
+// of tensors that may hold more than the block: it takes a pointer to
+// the block's first element and the tensors' element strides, reads its
+// box in place and writes the box of the output. Shards that share one
+// device are boxes of the global tensors, so a call copies nothing but
+// the edge planes; a shard on a device of its own passes a contiguous
+// block at offset 0.
+//
+// Each axis has a mode. On a wall axis a read past the block is 0; on a
+// periodic axis it wraps around the block (such an axis is not split,
+// so the block is the whole axis); on a halo axis a read at local index
+// -1 or n comes from the edge plane handed in for that side (the plane
+// of the neighbour shard, of the other end of a periodic axis, or zeros
+// at a wall), and any read further out is 0. A halo axis never wraps
+// inside the block: the wrap arrives through the edge planes. The
+// neighbours of a cell are read along one axis at a time, as every
+// stencil here reads them.
+enum AxisMode : int { kWall = 0, kPeriodic = 1, kHalo = 2 };
+
+template <int D>
+struct HaloGeom {
+    int n[D];             // the block's extents
+    int ng[D];            // the global extents: the row length of the
+                          // coefficient arrays, which are per global index
+    int mode[D];          // AxisMode
+    long long st[D];      // element strides of the cell tensors
+    long long est[D][D];  // est[a][b]: element strides along b of the
+                          // edge planes of axis a
+};
+
+// The geometry from the host's array: n, ng, mode, st (D each), est
+// (D x D, row-major); returns the number of entries read.
+template <int D>
+inline int read_halo_geom(const long long* a, HaloGeom<D>& g) {
+    int m = 0;
+    for (int d = 0; d < D; ++d) g.n[d] = (int)a[m++];
+    for (int d = 0; d < D; ++d) g.ng[d] = (int)a[m++];
+    for (int d = 0; d < D; ++d) g.mode[d] = (int)a[m++];
+    for (int d = 0; d < D; ++d) g.st[d] = a[m++];
+    for (int d = 0; d < D; ++d)
+        for (int e = 0; e < D; ++e) g.est[d][e] = a[m++];
+    return m;
+}
+
+// A field of a halo kernel: the block's first element, and per axis
+// the element of each edge plane at the block's origin (null on an
+// axis that is not a halo axis).
+template <typename T, int D>
+struct HaloField {
+    const T* x;
+    const T* lo[D];
+    const T* hi[D];
+};
+
+// The field at pos moved by off along ax, in the type the kernel
+// computes in.
+template <typename T, int D>
+__device__ __forceinline__ acc_t<T> halo_load(const HaloField<T, D>& f,
+                                              const HaloGeom<D>& g,
+                                              const int (&pos)[D], int ax,
+                                              int off) {
+    int q = pos[ax] + off;
+    const int n = g.n[ax];
+    if (q < 0 || q >= n) {
+        if (g.mode[ax] == kPeriodic) {
+            q = wrap_index(q, n);
+        } else {
+            if (g.mode[ax] != kHalo || (q != -1 && q != n)) return acc_t<T>(0);
+            long long o = 0;
+#pragma unroll
+            for (int b = 0; b < D; ++b)
+                if (b != ax) o += pos[b] * g.est[ax][b];
+            return Field<T>::load((q < 0 ? f.lo[ax] : f.hi[ax]) + o);
+        }
+    }
+    long long o = 0;
+#pragma unroll
+    for (int b = 0; b < D; ++b) o += (b == ax ? q : pos[b]) * g.st[b];
+    return Field<T>::load(f.x + o);
+}
+
+template <int D>
+__device__ __forceinline__ long long halo_offset(const HaloGeom<D>& g,
+                                                 const int (&pos)[D]) {
+    long long o = 0;
+#pragma unroll
+    for (int b = 0; b < D; ++b) o += pos[b] * g.st[b];
+    return o;
+}
+
 }  // namespace fluca

@@ -4,7 +4,7 @@ Reference: FlucaOptionsCreateViewer (fluca/src/viewer/interface/
 viewerbasic.c:4-145) parses ``type:filename:format:mode`` strings from
 the options database. Same syntax here; returns a viewer object with
 ``write_solution(ns)``/``close``. The CGNS viewer type is not ported
-yet (ROADMAP queue 1, item 8).
+yet (ROADMAP queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -88,6 +88,6 @@ def create_viewer_from_options(opts, name: str):
         return AsciiViewer(filename, mode=mode, fmt=fmt)
     if vtype in ("cgns", "flucacgns"):
         raise NotImplementedError(
-            "CGNS viewers are not ported yet (ROADMAP queue 1, item 8)"
+            "CGNS viewers are not ported yet (ROADMAP queue 1, item 2)"
         )
     raise ValueError(f"unknown viewer type {vtype!r} in {spec!r}")

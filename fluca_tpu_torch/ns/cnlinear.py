@@ -36,9 +36,10 @@ solver dtype (reference cnlinear.py:108-128, 566-724).
 
 The three stages around the momentum solve (the coupled apply's
 G/T/R/D epilogue, and the ABF pre and post stages) run through
-``_stages``, picked once at construction from the mesh: in 3-D the fused
-chain kernel (``ops/chain3d.py`` ``Chain3D``), in 2-D the banded
-operators (``UnfusedChain``). The ABF stages take the chain only where
+``_stages``, picked from the mesh: in 3-D the fused chain kernel
+(``ops/chain3d.py`` ``Chain3D``), in 2-D and under a device grid of more
+than one shard (``set_device_grid``) the banded operators
+(``UnfusedChain``). The ABF stages take the chain only where
 the reference's ``ops._chain3d`` branch runs (cnlinear.py:726-736): with
 ``schur_ainv`` and ``upper_ainv`` both "id", outside the bf16 ``pre``
 branch.
@@ -210,12 +211,14 @@ class CNLinearSolver:
         self.cfg = cfg or CNLinearConfig()
         self.ops = NSOperators(mesh, bcs, rho, mu, dt, self.dtype, self.device)
         # the chain stages: the fused kernel in 3-D, the banded operators
-        # in 2-D (and for the branches the chain does not serve)
+        # in 2-D (and for the branches the chain does not serve, and
+        # under a device grid)
         self._unfused = UnfusedChain(self.ops)
-        self._stages = self._unfused
+        self._chain = None
         if mesh.dim == 3:
-            self._stages = Chain3D(mesh, self.ops.axbcs, rho, dt, self.dtype,
-                                   self.device)
+            self._chain = Chain3D(mesh, self.ops.axbcs, rho, dt, self.dtype,
+                                  self.device)
+        self._stages = self._unfused if self._chain is None else self._chain
         self.mesh = mesh
         self.dt = float(dt)
         self.rho = float(rho)
@@ -227,10 +230,55 @@ class CNLinearSolver:
         # the precond_dtype multigrid twin, built on first use
         # (_pre_resources)
         self._pre16 = None
+        # the device grid (set_device_grid; None = one shard)
+        self.grid = None
         # optional momentum body-force hook: f(state0, t) -> cell
         # vector; added to the momentum RHS as dt * f (the channel's
         # mean-pressure-gradient forcing)
         self.body_force = None
+
+    # -- domain decomposition -------------------------------------------
+    def set_device_grid(self, grid) -> None:
+        """Run the step's kernels sharded over ``grid``
+        (fluca_tpu/ns/cnlinear.py:249-337, the reference's rank
+        decomposition, cart.c:85-151): the momentum A-apply through its
+        sharded form (parallel/sharded.py) and each multigrid level the
+        grid splits evenly through the sharded Poisson kernel
+        (``PoissonMG.set_device_grid``). The shards are boxes of the global
+        tensors on the solver's one device (``parallel/mesh.py``), so the
+        banded operators and the Krylov algebra run on the global tensors
+        as they are. As in the reference, a grid of more than one shard
+        runs the unfused chain (``UnfusedChain``: the reference runs its
+        chain kernel on one device only) and turns the reduced-precision
+        preconditioner off (``_pre_resources``). ``grid=None``, or a
+        degenerate grid of one shard, restores the single-device
+        kernels; the latter is recorded as the grid all the same."""
+        from fluca_tpu_torch.parallel.sharded import (
+            build_momentum2d_sharded, build_momentum_sharded,
+        )
+
+        if grid is not None and grid.device.type != self.device.type:
+            raise ValueError(f"device grid on {grid.device}, solver on {self.device}")
+        self.grid = grid
+        self._pre16 = None
+        ops = self.ops
+        if grid is None or grid.size == 1:
+            ops.sharded_momentum = None
+            self._stages = self._unfused if self._chain is None else self._chain
+            self.mg.set_device_grid(None)
+            return
+        if self.mesh.dim == 2:
+            ops.sharded_momentum = build_momentum2d_sharded(grid, self.mesh, self.dtype)
+        else:
+            ops.sharded_momentum = build_momentum_sharded(
+                grid, self.mesh, ops.axbcs, self.rho, self.mu, self.dt, self.dtype)
+        self._stages = self._unfused
+        self.mg.set_device_grid(grid)
+
+    @property
+    def sharded(self) -> bool:
+        """Whether a grid of more than one shard is set."""
+        return self.grid is not None and self.grid.size > 1
 
     # -- state ---------------------------------------------------------
     def zero_state(self) -> dict:
@@ -379,11 +427,13 @@ class CNLinearSolver:
     def _pre_resources(self):
         """The precond_dtype resources, built once: its dtype and, for
         scope "both", a PoissonMG hierarchy in that dtype (None for
-        "mom"). None when precond_dtype is off. Raises for
+        "mom"). None when precond_dtype is off, or under a device grid of
+        more than one shard (the reference's rule: its sharded kernels
+        have no reduced-precision instance, cnlinear.py:570-576). Raises for
         tolerance-based inner solves, which the reduced-precision path
         does not run (reference cnlinear.py:566-635)."""
         cfg = self.cfg
-        if cfg.precond_dtype is None:
+        if cfg.precond_dtype is None or self.sharded:
             return None
         if cfg.precond_scope not in ("both", "mom"):
             raise ValueError(f"unknown precond_scope {cfg.precond_scope!r}")

@@ -131,6 +131,30 @@ class NS:
             if self.state is None:
                 self.state = self.impl.zero_state()
 
+    # -- domain decomposition -------------------------------------------
+    def shard(self, grid=None, shape=None, devices=None) -> None:
+        """Run the solver over a device grid, the counterpart of
+        fluca_tpu/ns/ns.py:125-150 (the reference's MPI rank
+        decomposition, MeshSetUp_Cart, cart.c:85-151): its kernels run
+        sharded, one halo launch per shard, with the edge planes
+        exchanged between shards (``CNLinearSolver.set_device_grid``).
+        ``grid`` is a parallel.mesh.DeviceGrid; or pass ``shape`` (e.g.
+        (2, 4)) and/or ``devices`` to build one (``make_device_grid``,
+        on the solver's device by default). The shards share that device:
+        the state stays where it is."""
+        from fluca_tpu_torch.parallel.mesh import make_device_grid
+
+        self.setup()
+        if grid is None:
+            grid = make_device_grid(self.mesh.dim,
+                                    devices=[self.device] if devices is None else devices,
+                                    shape=shape)
+        self.impl.set_device_grid(grid)
+
+    @property
+    def device_grid(self):
+        return self.impl.grid if self.impl is not None else None
+
     # -- solution access ----------------------------------------------
     def set_solution(self, v=None, U=None, p=None, phalf=None) -> None:
         self.setup()

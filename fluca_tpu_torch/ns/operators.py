@@ -174,6 +174,9 @@ class NSOperators:
         self._mom_bands3d_twin = None
         if dim == 3:
             self.mom_bands3d = self._momentum_bands(dtype)
+        # under a device grid (CNLinearSolver.set_device_grid): the
+        # sharded momentum A-apply of parallel/sharded.py, else None
+        self.sharded_momentum = None
 
     def _momentum_bands(self, dtype):
         return cuda_stencil.Momentum3DBands.from_host(
@@ -398,15 +401,24 @@ class NSOperators:
 
     def build_momentum_operator(self, U0, v0f):
         """The per-step coefficients ``apply_A_coeffs`` takes: the 2-D
-        plane stack or the 3-D face factors."""
+        plane stack, or the 3-D face factors (under a device grid with
+        their hi face planes, ``ShardedMomentum3D.prep``)."""
         if self.dim == 2:
             return self.build_momentum_coeffs_stacked(U0, v0f)
+        if self.sharded_momentum is not None:
+            return self.sharded_momentum.prep(U0, v0f)
         return self.build_momentum_factors_3d(U0, v0f)
 
     def apply_A_coeffs(self, v, coeffs):
         """A v through the fused momentum kernel (its plain version for
         CPU tensors), on the 2-D plane stack or the 3-D face factors,
-        whose dtype picks the bands (``momentum_bands_3d``)."""
+        whose dtype picks the bands (``momentum_bands_3d``); under a device
+        grid through its sharded form, on the solver dtype's
+        coefficients."""
+        if self.sharded_momentum is not None:
+            if self.dim == 2:
+                return self.sharded_momentum(coeffs, v[0], v[1])
+            return self.sharded_momentum.apply(v, coeffs)
         if self.dim == 2:
             return cuda_stencil.momentum2d(
                 coeffs, v[0], v[1], self.mesh.periodic

@@ -14,7 +14,11 @@ run:
 - the fused 3-D interp/div/grad chain (``Chain3D._build`` there) in
   its three stages (coupled, ABF pre, ABF post), called by every
   coupled apply and every ABF application of the 3-D step, through
-  ``ops/chain3d.py``'s ``Chain3D``.
+  ``ops/chain3d.py``'s ``Chain3D``;
+- the halo instances of the four stencils (``*_halo``), the
+  counterparts of fluca_tpu.parallel.pallas_sharded's wrappers: the
+  same kernels on the shards of a device grid, one launch per shard,
+  through ``parallel/sharded.py``.
 
 The CUDA sources live in ``fluca_tpu_torch/csrc``. They are compiled on
 first use with ``nvcc`` for ``sm_90a`` (one process per source, in
@@ -58,6 +62,7 @@ import numpy as np
 import torch
 
 from fluca_tpu_torch.ops.banded import broadcast_1d, shifted
+from fluca_tpu_torch.parallel.mesh import DeviceGrid
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("poisson2d.cu", "momentum2d.cu", "poisson3d.cu", "momentum3d.cu",
@@ -375,21 +380,30 @@ def poisson2d_plain(mode, p, c: Poisson2DCoeffs, b=None, w=None,
     """Plain PyTorch version of the Poisson 2-D kernel (same function,
     same coefficient arrays): computed in the coefficients' dtype,
     returned in the fields'."""
-    N0, N1 = p.shape
-    per0, per1 = c.periodic
     out_dtype = p.dtype
     p, b, w = _upcast(c.rx.dtype, p, b, w)
+    return _poisson2d(mode, p, c, b, w, omega, _global_shift(p, c.periodic)).to(out_dtype)
+
+
+def _global_shift(x, periodic):
+    """sh(axis, off): ``x`` shifted with ``shifted``'s semantics."""
+    return lambda a, off: shifted(x, a, off, x.shape[a], periodic[a])
+
+
+def _poisson2d(mode, p, c, b, w, omega, sh):
+    """The Poisson 2-D function with the neighbour reads of p from
+    ``sh(axis, off)``: shared by the plain and the halo plain version."""
     x = (
-        c.rx[0][:, None] * shifted(p, 0, -1, N0, per0)
+        c.rx[0][:, None] * sh(0, -1)
         + c.rx[1][:, None] * p
-        + c.rx[2][:, None] * shifted(p, 0, 1, N0, per0)
+        + c.rx[2][:, None] * sh(0, 1)
     ) * c.cy[None, :]
     y = c.ry[:, None] * (
-        c.cyb[0][None, :] * shifted(p, 1, -1, N1, per1)
+        c.cyb[0][None, :] * sh(1, -1)
         + c.cyb[1][None, :] * p
-        + c.cyb[2][None, :] * shifted(p, 1, 1, N1, per1)
+        + c.cyb[2][None, :] * sh(1, 1)
     )
-    return _poisson_mode(mode, x + y, p, b, w, omega).to(out_dtype)
+    return _poisson_mode(mode, x + y, p, b, w, omega)
 
 
 def _poisson_mode(mode, sp, p, b, w, omega):
@@ -449,32 +463,31 @@ def momentum2d_plain(W, u, v, periodic):
     the (26, N0, N1) plane stack of
     NSOperators.build_momentum_coeffs_stacked, computed in the
     ``coef_dtype`` of the fields' dtype and returned in the fields'."""
-    N0, N1 = u.shape
-    per0, per1 = periodic
     out_dtype = u.dtype
     W, u, v = _upcast(coef_dtype(u.dtype), W, u, v)
+    out = _momentum2d(W, u, v, _global_shift(u, periodic), _global_shift(v, periodic))
+    return tuple(x.to(out_dtype) for x in out)
 
-    def sx(x, o):
-        return shifted(x, 0, o, N0, per0)
 
-    def sy(x, o):
-        return shifted(x, 1, o, N1, per1)
-
+def _momentum2d(W, u, v, su, sv):
+    """The momentum 2-D function with the neighbour reads of u and v
+    from ``su(axis, off)`` and ``sv(axis, off)``: shared by the plain and
+    the halo plain version."""
     out_u = (
-        W[0] * sx(u, -1) + W[1] * u + W[2] * sx(u, 1)
-        + W[3] * sy(u, -1) + W[4] * u + W[5] * sy(u, 1)
-        + W[6] * sy(v, -1) + W[7] * v + W[8] * sy(v, 1)
-        + W[18] * sx(u, -2) + W[19] * sx(u, 2)
-        + W[20] * sy(u, -2) + W[21] * sy(u, 2)
+        W[0] * su(0, -1) + W[1] * u + W[2] * su(0, 1)
+        + W[3] * su(1, -1) + W[4] * u + W[5] * su(1, 1)
+        + W[6] * sv(1, -1) + W[7] * v + W[8] * sv(1, 1)
+        + W[18] * su(0, -2) + W[19] * su(0, 2)
+        + W[20] * su(1, -2) + W[21] * su(1, 2)
     )
     out_v = (
-        W[9] * sx(v, -1) + W[10] * v + W[11] * sx(v, 1)
-        + W[12] * sy(v, -1) + W[13] * v + W[14] * sy(v, 1)
-        + W[15] * sx(u, -1) + W[16] * u + W[17] * sx(u, 1)
-        + W[22] * sx(v, -2) + W[23] * sx(v, 2)
-        + W[24] * sy(v, -2) + W[25] * sy(v, 2)
+        W[9] * sv(0, -1) + W[10] * v + W[11] * sv(0, 1)
+        + W[12] * sv(1, -1) + W[13] * v + W[14] * sv(1, 1)
+        + W[15] * su(0, -1) + W[16] * u + W[17] * su(0, 1)
+        + W[22] * sv(0, -2) + W[23] * sv(0, 2)
+        + W[24] * sv(1, -2) + W[25] * sv(1, 2)
     )
-    return out_u.to(out_dtype), out_v.to(out_dtype)
+    return out_u, out_v
 
 
 class Momentum2DKernel(_Kernel):
@@ -586,20 +599,22 @@ def poisson3d_plain(mode, p, c: Poisson3DCoeffs, b=None, w=None,
     returned in the fields'."""
     out_dtype = p.dtype
     p, b, w = _upcast(c.a0.dtype, p, b, w)
+    return _poisson3d(mode, p, c, b, w, omega, _global_shift(p, c.periodic)).to(out_dtype)
 
+
+def _poisson3d(mode, p, c, b, w, omega, sh):
+    """The Poisson 3-D function with the neighbour reads of p from
+    ``sh(axis, off)``: shared by the plain and the halo plain version."""
     def axis_sum(band, d):
-        shape = [1, 1, 1]
-        shape[d] = -1
-        n = p.shape[d]
-        return sum(band[o + 1].reshape(shape)
-                   * shifted(p, d, o, n, c.periodic[d]) for o in (-1, 0, 1))
+        return sum(broadcast_1d(band[o + 1], 3, d) * (sh(d, o) if o else p)
+                   for o in (-1, 0, 1))
 
     h0 = c.h0[:, None, None]
     h1 = c.h1[None, :, None]
     h2 = c.h2[None, None, :]
     sp = (h1 * h2 * axis_sum(c.a0, 0)
           + h0 * (h2 * axis_sum(c.c1, 1) + h1 * axis_sum(c.c2, 2)))
-    return _poisson_mode(mode, sp, p, b, w, omega).to(out_dtype)
+    return _poisson_mode(mode, sp, p, b, w, omega)
 
 
 class Poisson3DKernel(_Kernel):
@@ -782,17 +797,24 @@ def momentum3d_plain(bands: Momentum3DBands, f: Momentum3DFactors, v):
     U0 = _upcast(acc_dtype, *f.U0)
     v0f = tuple(_upcast(acc_dtype, *row) for row in f.v0f)
 
-    def sh(x, a, off):
-        return shifted(x, a, off, shape[a], per[a])
-
-    def lo_hi(F, a):
+    def lo_hi(a, F, _):
         if per[a]:
             return F, torch.roll(F, -1, a)
         n = shape[a]
         return F.narrow(a, 0, n), F.narrow(a, 1, n)
 
-    def band_sum(a, rows, x):
-        return sum(broadcast_1d(bands.b[a][r], 3, a) * sh(x, a, off)
+    shifts = [_global_shift(x, per) for x in v]
+    out = _momentum3d(bands, U0, v0f, v, lambda e, a, off: shifts[e](a, off), lo_hi)
+    return tuple(x.to(out_dtype) for x in out)
+
+
+def _momentum3d(bands, U0, v0f, v, sh, lo_hi):
+    """The momentum 3-D function with the neighbour reads of v[e] from
+    ``sh(e, axis, off)`` and the (low, high) factors of face array F of
+    axis a from ``lo_hi(a, F, (a, c))`` (c = None for U0[a]): shared by
+    the plain and the halo plain version."""
+    def band_sum(a, rows, e):
+        return sum(broadcast_1d(bands.b[a][r], 3, a) * (sh(e, a, off) if off else v[e])
                    for off, r in rows)
 
     def conv_rows(var, lr):
@@ -800,21 +822,21 @@ def momentum3d_plain(bands: Momentum3DBands, f: Momentum3DFactors, v):
 
     acc = list(v)
     for a in range(3):
-        FlU, FrU = lo_hi(U0[a], a)
-        nl = band_sum(a, conv_rows(1, 0), v[a])
-        nr = band_sum(a, conv_rows(1, 1), v[a])
+        FlU, FrU = lo_hi(a, U0[a], (a, None))
+        nl = band_sum(a, conv_rows(1, 0), a)
+        nr = band_sum(a, conv_rows(1, 1), a)
         for c in range(3):
-            Flv, Frv = lo_hi(v0f[a][c], a)
+            Flv, Frv = lo_hi(a, v0f[a][c], (a, c))
             s = band_sum(a, [(off, mom3d_lap_row(c, off))
-                             for off in (-2, -1, 0, 1, 2)], v[c])
+                             for off in (-2, -1, 0, 1, 2)], c)
             if c == a:
                 s = s + (Flv + FlU) * nl + (Frv + FrU) * nr
             else:
                 s = (s + Flv * nl + Frv * nr
-                     + FlU * band_sum(a, conv_rows(0, 0), v[c])
-                     + FrU * band_sum(a, conv_rows(0, 1), v[c]))
+                     + FlU * band_sum(a, conv_rows(0, 0), c)
+                     + FrU * band_sum(a, conv_rows(0, 1), c))
             acc[c] = acc[c] + s
-    return tuple(x.to(out_dtype) for x in acc)
+    return acc
 
 
 class Momentum3DKernel(_Kernel):
@@ -857,6 +879,431 @@ class Momentum3DKernel(_Kernel):
 
 
 momentum3d = Momentum3DKernel()
+
+
+# ----------------------------------------------------------------------
+# Halo instances: the kernels on the shards of a domain-decomposed grid
+# ----------------------------------------------------------------------
+#
+# Counterparts of fluca_tpu/parallel/pallas_sharded.py, which runs the
+# TPU kernels per shard under shard_map with edges from ppermute. A
+# wrapper here takes the global tensors, the decomposition (HaloLayout)
+# and the edge planes of each field (parallel/halo.py neighbor_slabs),
+# launches one kernel per shard on that shard's box of the global
+# tensors, and returns the global output. The float32 and float64
+# instances only: the reference keeps the reduced-precision
+# preconditioner off under a device grid (fluca_tpu/ns/cnlinear.py:
+# 570-576).
+
+# the AxisMode values of csrc/stencil_common.cuh
+HALO_MODES = {"wall": 0, "periodic": 1, "halo": 2}
+# local extents below this on a halo axis are refused by the momentum
+# kernels: their +-2 Laplacian rows must not reach past an edge plane
+MIN_MOMENTUM_LOCAL = 3
+_PP, _PL = ctypes.POINTER(_VP), ctypes.POINTER(ctypes.c_longlong)
+
+
+@dataclass(frozen=True)
+class HaloLayout:
+    """One call's decomposition: the device ``grid``
+    (``parallel.mesh.DeviceGrid``: shard k owns the box k_a * n_a ..
+    (k_a + 1) * n_a along each axis a) over a grid of ``shape`` cells with
+    the ``periodic`` flags. An axis split over more than one shard is a
+    halo axis: reads past a block come from edge planes. The others keep
+    their global mode (wall or periodic)."""
+
+    grid: DeviceGrid
+    shape: tuple[int, ...]
+    periodic: tuple[bool, ...]
+
+    def __post_init__(self):
+        if len(self.periodic) != len(self.shape):
+            raise ValueError(f"layout: shape {self.shape}, periodic {self.periodic}")
+        self.grid.local_shape(self.shape)
+
+    @functools.cached_property
+    def local(self) -> tuple[int, ...]:
+        """The extents of each shard's block."""
+        return self.grid.local_shape(self.shape)
+
+    @functools.cached_property
+    def modes(self) -> tuple[str, ...]:
+        """Per axis "halo", "periodic" or "wall" (HALO_MODES)."""
+        return tuple("halo" if s > 1 else "periodic" if per else "wall"
+                     for s, per in zip(self.grid.shape, self.periodic))
+
+    @functools.cached_property
+    def halo_axes(self) -> tuple[int, ...]:
+        return tuple(a for a, s in enumerate(self.grid.shape) if s > 1)
+
+    @property
+    def key(self):
+        """The (shape, band set) pair of the launch ledger: the global,
+        local and grid shapes, and the axis modes with the global
+        periodicity."""
+        return (self.shape, self.local, self.grid.shape), (self.modes, self.periodic)
+
+    def start(self, k) -> tuple[int, ...]:
+        """The first index of shard ``k``'s box."""
+        return tuple(c * n for c, n in zip(k, self.local))
+
+    def edge_shape(self, a) -> tuple[int, ...]:
+        """The shape of axis ``a``'s edge-plane stacks: one plane per
+        shard along ``a``, the global extents along the others."""
+        return tuple(s if d == a else n
+                     for d, (n, s) in enumerate(zip(self.shape, self.grid.shape)))
+
+
+def halo_shifted(x, a, off, edge, nshards, periodic):
+    """y[i] = x[i + off] along axis ``a`` inside each shard's block of
+    ``x`` (``nshards`` blocks along ``a``), with the edge planes ``edge`` =
+    (lo, hi) at local index -1 and n and zeros further out; ``shifted``
+    where ``a`` is not split (``edge`` None)."""
+    if edge is None:
+        return shifted(x, a, off, x.shape[a], periodic)
+    if off == 0:
+        return x
+    lo, hi = edge
+    n = x.shape[a] // nshards
+    ext = torch.cat([lo.unsqueeze(a + 1), x.unflatten(a, (nshards, n)),
+                     hi.unsqueeze(a + 1)], a + 1)
+    return shifted(ext, a + 1, off + 1, n, False).flatten(a, a + 1)
+
+
+def _halo_shift(x, layout, edges):
+    """sh(axis, off): ``x`` shifted with ``halo_shifted``."""
+    return lambda a, off: halo_shifted(x, a, off, edges[a], layout.grid.shape[a],
+                                       layout.periodic[a])
+
+
+def _check_halo_call(name, layout, ref, fields):
+    """The layout fits the fields ``fields`` = {label: (tensor, edges)}:
+    float32 or float64, the layout's shape, and per axis edge planes
+    (lo, hi) of ``layout.edge_shape`` on the halo axes and None on the
+    others, all with the strides of the first field's."""
+    if ref.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: no {ref.dtype} instance (float32 or float64)")
+    est = None
+    for label, (x, edges) in fields.items():
+        if tuple(x.shape) != layout.shape:
+            raise ValueError(f"{name}: {label} has shape {tuple(x.shape)}, the "
+                             f"layout {layout.shape}")
+        if len(edges) != len(layout.shape):
+            raise ValueError(f"{name}: {label} needs edges for {len(layout.shape)} axes")
+        for a, e in enumerate(edges):
+            if a not in layout.halo_axes:
+                if e is not None:
+                    raise ValueError(f"{name}: {label} has edge planes on axis {a}, "
+                                     f"which is not split")
+                continue
+            if e is None or len(e) != 2:
+                raise ValueError(f"{name}: {label} needs (lo, hi) edge planes on "
+                                 f"axis {a}")
+            for side, t in zip(("lo", "hi"), e):
+                if not isinstance(t, torch.Tensor) \
+                        or tuple(t.shape) != layout.edge_shape(a) \
+                        or t.dtype != ref.dtype or t.device != ref.device:
+                    raise ValueError(f"{name}: {label} {side} edge of axis {a} must "
+                                     f"be a {ref.dtype} tensor of shape "
+                                     f"{layout.edge_shape(a)} on {ref.device}")
+        strides = tuple(t.stride() for e in edges if e is not None for t in e)
+        if est is None:
+            est = strides
+        elif strides != est:
+            raise ValueError(f"{name}: {label}'s edge planes have other strides "
+                             f"than the first field's")
+
+
+def check_far_reads(name, layout, coefs):
+    """A +-2 read that falls past an edge plane reads 0 in the halo
+    kernels: its coefficient must be 0 there. ``coefs``: (grid axis a,
+    offset -2 or 2, coefficient tensor, its axis that runs along a)."""
+    for a, off, w, d in coefs:
+        if a not in layout.halo_axes:
+            continue
+        n = layout.local[a]
+        row = w.unflatten(d, (layout.grid.shape[a], n)).select(d + 1, 0 if off < 0 else n - 1)
+        if bool(torch.any(row != 0)):
+            raise ValueError(f"{name}: a {off:+d} read past the edge plane of axis "
+                             f"{a} meets a nonzero coefficient (local extent {n})")
+
+
+def check_momentum_local(name, layout):
+    for a in layout.halo_axes:
+        if layout.local[a] < MIN_MOMENTUM_LOCAL:
+            raise ValueError(f"{name}: local extent {layout.local[a]} on halo axis "
+                             f"{a} (at least {MIN_MOMENTUM_LOCAL}: the +-2 rows)")
+
+
+def _ptr(t, index) -> int:
+    """The address of element ``index`` of ``t``."""
+    return t.data_ptr() + t.element_size() * sum(
+        i * s for i, s in zip(index, t.stride()))
+
+
+def _edge_ptrs(layout, k, edges) -> list:
+    """Shard ``k``'s lo and hi edge-plane addresses, axis by axis (None
+    off the halo axes)."""
+    start = layout.start(k)
+    out = []
+    for a, e in enumerate(edges):
+        if e is None:
+            out += [None, None]
+            continue
+        idx = tuple(k[a] if d == a else i for d, i in enumerate(start))
+        out += [_ptr(e[0], idx), _ptr(e[1], idx)]
+    return out
+
+
+def _halo_geom(layout, strides, edges, extra=()):
+    """The geometry array of csrc/stencil_common.cuh read_halo_geom:
+    local and global extents, axis modes, the cell strides, each axis'
+    edge-plane strides; then ``extra``."""
+    D = len(layout.shape)
+    est = [x for e in edges for x in (e[0].stride() if e is not None else (0,) * D)]
+    vals = [*layout.local, *layout.shape, *(HALO_MODES[m] for m in layout.modes),
+            *strides, *est, *extra]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _col_ptr(t, start) -> int:
+    """The address of column ``start`` of a 1-D or (rows, N) array."""
+    return t.data_ptr() + start * t.element_size()
+
+
+def poisson2d_halo_plain(mode, p, c: Poisson2DCoeffs, layout, edges, b=None, w=None,
+                         omega=0.0):
+    """Plain PyTorch version of the Poisson 2-D halo instance: every
+    shard's block with its edge planes (``halo_shifted``), the same
+    arithmetic as ``poisson2d_plain``."""
+    return _poisson2d(mode, p, c, b, w, omega, _halo_shift(p, layout, edges))
+
+
+def poisson3d_halo_plain(mode, p, c: Poisson3DCoeffs, layout, edges, b=None, w=None,
+                         omega=0.0):
+    """Plain PyTorch version of the Poisson 3-D halo instance."""
+    return _poisson3d(mode, p, c, b, w, omega, _halo_shift(p, layout, edges))
+
+
+class _PoissonHaloKernel(_Kernel):
+    """Wrapper of a Poisson halo instance: (mode, p, coefficients,
+    layout, p's edges[, b][, w][, omega]) -> the global Sp | b - Sp |
+    smoothed p, one launch per shard."""
+
+    instances = ("f32", "f64")
+    argtypes = [_CI, _PP, _PL, ctypes.c_double, _VP]
+
+    def __init__(self, ndim, unsharded, plain):
+        self.ndim = ndim
+        self.name = f"{unsharded.name}_halo"
+        self._unsharded = unsharded
+        self._plain = plain
+        super().__init__()
+
+    @property
+    def source(self) -> str:
+        return self._unsharded.source
+
+    def _coeff_ptrs(self, c, start):
+        if self.ndim == 2:
+            return [_col_ptr(c.rx, start[0]), _col_ptr(c.ry, start[0]),
+                    _col_ptr(c.cy, start[1]), _col_ptr(c.cyb, start[1])]
+        return [_col_ptr(t, start[d]) for t, d in ((c.a0, 0), (c.c1, 1), (c.c2, 2),
+                                                   (c.h0, 0), (c.h1, 1), (c.h2, 2))]
+
+    def __call__(self, mode, p, c, layout: HaloLayout, edges, b=None, w=None,
+                 omega=0.0):
+        fields = _poisson_fields(self.name, mode, p, b, w, self.ndim)
+        if c.shape != layout.shape or c.periodic != layout.periodic:
+            raise ValueError(f"{self.name}: coefficients for {c.shape} periodic "
+                             f"{c.periodic}, layout {layout.shape} periodic "
+                             f"{layout.periodic}")
+        _check_tensors(self.name, p, fields, {k: t for k, t in vars(c).items()
+                                              if torch.is_tensor(t)})
+        _check_halo_call(self.name, layout, p, {"p": (p, edges)})
+        if _launch_target(self.name, p) == "cpu":
+            return self._plain(mode, p, c, layout, edges, b, w, omega)
+        if 0 in layout.local or layout.local[0] > (_MAX_PLANES if self.ndim == 3
+                                                   else _MAX_ROWS):
+            raise ValueError(f"{self.name}: unsupported local shape {layout.local}")
+        out = torch.empty_like(p)
+        geom = _halo_geom(layout, p.stride(), edges)
+        stream = _stream_ptr(p)
+        for k in layout.grid.shards():
+            start = layout.start(k)
+            ptrs = [_ptr(p, start), b if b is None else _ptr(b, start),
+                    w if w is None else _ptr(w, start), *self._coeff_ptrs(c, start),
+                    _ptr(out, start), *_edge_ptrs(layout, k, edges)]
+            self._launch(p.dtype, layout.key, POISSON_MODES[mode],
+                         (_VP * len(ptrs))(*ptrs), geom, float(omega), stream)
+        return out
+
+
+poisson2d_halo = _PoissonHaloKernel(2, poisson2d, poisson2d_halo_plain)
+poisson3d_halo = _PoissonHaloKernel(3, poisson3d, poisson3d_halo_plain)
+
+
+def momentum2d_halo_plain(W, u, v, layout, u_edges, v_edges):
+    """Plain PyTorch version of the momentum 2-D halo instance: every
+    shard's block with its edge planes, the same arithmetic as
+    ``momentum2d_plain``. Raises where a +-2 read past an edge plane
+    would meet a nonzero plane entry."""
+    check_far_reads("momentum2d_halo", layout, [
+        (a, off, W[plane], a) for first in (18, 22)
+        for plane, (a, off) in zip(range(first, first + 4),
+                                   ((0, -2), (0, 2), (1, -2), (1, 2)))])
+    return _momentum2d(W, u, v, _halo_shift(u, layout, u_edges),
+                       _halo_shift(v, layout, v_edges))
+
+
+class Momentum2DHaloKernel(_Kernel):
+    """Wrapper of the momentum 2-D halo instance: (W, u, v, layout, u's
+    edges, v's edges) -> the global (A u, A v), one launch per shard."""
+
+    name = "momentum2d_halo"
+    source = "momentum2d.cu"
+    instances = ("f32", "f64")
+    argtypes = [_PP, _PL, _VP]
+
+    def __call__(self, W, u, v, layout: HaloLayout, u_edges, v_edges):
+        if not isinstance(u, torch.Tensor) or u.dim() != 2 \
+                or not isinstance(v, torch.Tensor) or v.shape != u.shape:
+            raise ValueError(f"{self.name}: u and v must be 2-D tensors of one shape")
+        if not isinstance(W, torch.Tensor) or \
+                W.shape != (MOMENTUM_PLANES, *u.shape):
+            raise ValueError(f"{self.name}: W must have shape "
+                             f"{(MOMENTUM_PLANES, *u.shape)}")
+        _check_tensors(self.name, u, {"W": W, "u": u, "v": v})
+        _check_halo_call(self.name, layout, u, {"u": (u, u_edges), "v": (v, v_edges)})
+        check_momentum_local(self.name, layout)
+        if _launch_target(self.name, u) == "cpu":
+            return momentum2d_halo_plain(W, u, v, layout, u_edges, v_edges)
+        if layout.local[0] > _MAX_ROWS:
+            raise ValueError(f"{self.name}: unsupported local shape {layout.local}")
+        out = (torch.empty_like(u), torch.empty_like(v))
+        geom = _halo_geom(layout, u.stride(), u_edges)
+        stream = _stream_ptr(u)
+        for k in layout.grid.shards():
+            start = layout.start(k)
+            ptrs = [_ptr(W, (0, *start)), *(_ptr(x, start) for x in (u, v, *out)),
+                    *_edge_ptrs(layout, k, u_edges), *_edge_ptrs(layout, k, v_edges)]
+            self._launch(u.dtype, layout.key, (_VP * len(ptrs))(*ptrs), geom, stream)
+        return out
+
+
+momentum2d_halo = Momentum2DHaloKernel()
+
+
+def momentum3d_halo_plain(bands: Momentum3DBands, f: Momentum3DFactors, v, layout,
+                          v_edges, face_hi):
+    """Plain PyTorch version of the momentum 3-D halo instance: every
+    shard's block with the edge planes of v and, on each halo axis,
+    the hi face planes ``face_hi[a]`` (U0[a], v0f[a][0..2]) for the high
+    factor of the block's last cell; the same arithmetic as
+    ``momentum3d_plain``. Raises where a +-2 read past an edge plane
+    would meet a nonzero band entry."""
+    check_far_reads("momentum3d_halo", layout, [
+        (a, off, bands.b[a][mom3d_lap_row(c, off)], 0)
+        for a in range(3) for c in range(3) for off in (-2, 2)])
+    shifts = [_halo_shift(x, layout, e) for x, e in zip(v, v_edges)]
+
+    def lo_hi(a, F, which):
+        N, per = layout.shape[a], layout.periodic[a]
+        if a not in layout.halo_axes:
+            return (F, torch.roll(F, -1, a)) if per else (F.narrow(a, 0, N),
+                                                         F.narrow(a, 1, N))
+        s, n = layout.grid.shape[a], layout.local[a]
+        lo = F.narrow(a, 0, N)
+        plane = face_hi[a][0 if which[1] is None else 1 + which[1]]
+        hi = torch.cat([lo.unflatten(a, (s, n)).narrow(a + 1, 1, n - 1),
+                        plane.unsqueeze(a + 1)], a + 1).flatten(a, a + 1)
+        return lo, hi
+
+    return tuple(_momentum3d(bands, f.U0, f.v0f, tuple(v),
+                             lambda e, a, off: shifts[e](a, off), lo_hi))
+
+
+class Momentum3DHaloKernel(_Kernel):
+    """Wrapper of the momentum 3-D halo instance: (bands, factors, v,
+    layout, v's edges by component, face_hi) -> the global A v, one
+    launch per shard. ``face_hi[a]`` is None off the halo axes, else the
+    hi face-plane stacks (``layout.edge_shape(a)``) of U0[a] and
+    v0f[a][0..2]: face (k + 1) n_a of each, for shard k along a."""
+
+    name = "momentum3d_halo"
+    source = "momentum3d.cu"
+    instances = ("f32", "f64")
+    argtypes = [_PP, _PL, _VP]
+
+    def __call__(self, bands: Momentum3DBands, f: Momentum3DFactors, v, layout,
+                 v_edges, face_hi):
+        if len(v) != 3 or len(v_edges) != 3:
+            raise ValueError(f"{self.name}: v and v_edges must hold 3 components")
+        band0, ref = bands.b[0], f.U0[0]
+        if f.shape != bands.shape or f.periodic != bands.periodic \
+                or ref.dtype != band0.dtype or ref.device != band0.device \
+                or bands.shape != layout.shape or bands.periodic != layout.periodic:
+            raise ValueError(f"{self.name}: factors for {f.shape} {ref.dtype}, bands "
+                             f"for {bands.shape} periodic {bands.periodic} "
+                             f"{band0.dtype}, layout {layout.shape} periodic "
+                             f"{layout.periodic}")
+        _check_tensors(self.name, ref, {f"v[{e}]": x for e, x in enumerate(v)})
+        _check_halo_call(self.name, layout, ref, {f"v[{e}]": (x, ed) for e, (x, ed)
+                                                  in enumerate(zip(v, v_edges))})
+        check_momentum_local(self.name, layout)
+        if len(face_hi) != 3:
+            raise ValueError(f"{self.name}: face_hi needs an entry per axis")
+        for a, planes in enumerate(face_hi):
+            if a not in layout.halo_axes:
+                if planes is not None:
+                    raise ValueError(f"{self.name}: hi face planes on axis {a}, "
+                                     f"which is not split")
+                continue
+            if planes is None or len(planes) != 4 or any(
+                    not isinstance(t, torch.Tensor) or t.dtype != ref.dtype
+                    or t.device != ref.device or tuple(t.shape) != layout.edge_shape(a)
+                    or t.stride() != planes[0].stride() for t in planes):
+                raise ValueError(f"{self.name}: face_hi[{a}] must be 4 {ref.dtype} "
+                                 f"tensors of shape {layout.edge_shape(a)} with one "
+                                 f"stride")
+        if _launch_target(self.name, ref) == "cpu":
+            return momentum3d_halo_plain(bands, f, v, layout, v_edges, face_hi)
+        N0, N1, _ = layout.local
+        if N0 > _MAX_PLANES or N1 > _MAX_ROWS:
+            raise ValueError(f"{self.name}: unsupported local shape {layout.local}")
+        out = tuple(torch.empty_like(x) for x in v)
+        fst = [x for a in range(3) for x in f.U0[a].stride()]
+        fest = [x for a in range(3)
+                for x in (face_hi[a][0].stride() if face_hi[a] is not None else (0,) * 3)]
+        geom = _halo_geom(layout, v[0].stride(), v_edges[0], (*fst, *fest))
+        faces = [*f.U0, *(F for row in f.v0f for F in row)]
+        stream = _stream_ptr(ref)
+        for k in layout.grid.shards():
+            start = layout.start(k)
+            ptrs = [*(_col_ptr(B, start[a]) for a, B in enumerate(bands.b)),
+                    *(_ptr(x, start) for x in (*v, *faces, *out)),
+                    *(p for e in v_edges for p in _edge_ptrs(layout, k, e)),
+                    *self._face_hi_ptrs(layout, k, face_hi)]
+            self._launch(ref.dtype, layout.key, (_VP * len(ptrs))(*ptrs), geom, stream)
+        return out
+
+    @staticmethod
+    def _face_hi_ptrs(layout, k, face_hi):
+        """Shard ``k``'s hi face-plane addresses: U0[0..2], then
+        v0f[a][c] a-major (None off the halo axes)."""
+        start = layout.start(k)
+
+        def at(a, q):
+            if face_hi[a] is None:
+                return None
+            return _ptr(face_hi[a][q], tuple(k[a] if d == a else i
+                                             for d, i in enumerate(start)))
+
+        return [at(a, 0) for a in range(3)] + [at(a, 1 + c) for a in range(3)
+                                               for c in range(3)]
+
+
+momentum3d_halo = Momentum3DHaloKernel()
 
 
 # ----------------------------------------------------------------------
@@ -949,7 +1396,8 @@ chain3d_pre = Chain3DKernel("pre")
 chain3d_post = Chain3DKernel("post")
 
 KERNELS = (poisson2d, momentum2d, poisson3d, momentum3d,
-           chain3d_coupled, chain3d_pre, chain3d_post)
+           chain3d_coupled, chain3d_pre, chain3d_post,
+           poisson2d_halo, momentum2d_halo, poisson3d_halo, momentum3d_halo)
 
 
 def reset_launch_counts() -> None:

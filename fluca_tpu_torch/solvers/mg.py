@@ -17,7 +17,9 @@ level).
 
 Every level's apply, residual and Jacobi sweep goes through the fused
 Poisson 2-D or 3-D kernel (ops/cuda_stencil.py), by the mesh's
-dimension, whatever the level's size.
+dimension, whatever the level's size. Under a device grid
+(``set_device_grid``) each level the grid splits evenly runs it sharded,
+one halo launch per shard (parallel/sharded.py).
 
 A hierarchy in bfloat16 (the reduced-precision ABF preconditioner's
 Schur solve) keeps its fields, volumes, inverse diagonals, restriction,
@@ -51,6 +53,9 @@ class _Level:
     host_dgst: tuple  # per-axis host-f64 D@Gst AxisStencils
     host_vol: np.ndarray  # scale * cell volumes, host f64
     cheb_lmax: float | None = None  # Chebyshev smoothing upper bound
+    # under a device grid: the level's sharded kernel by mode
+    # (parallel/sharded.py), or None for the unsharded kernel
+    sharded: dict | None = None
 
 
 def _build_level(mesh: CartMesh, axbcs, scale: float, dtype, device) -> _Level:
@@ -128,6 +133,8 @@ class PoissonMG:
         self.smoother = smoother
         self._kernel = (cuda_stencil.poisson2d if mesh.dim == 2
                         else cuda_stencil.poisson3d)
+        # the shapes of the levels that run sharded (set_device_grid)
+        self.sharded_levels: tuple = ()
         self.levels: list[_Level] = []
         m = mesh
         while True:
@@ -190,9 +197,34 @@ class PoissonMG:
             torch.backends.cuda.matmul.allow_tf32 = False
 
     # ------------------------------------------------------------------
+    def set_device_grid(self, grid) -> None:
+        """Run each level that ``grid`` splits evenly through the sharded
+        Poisson kernel (parallel/sharded.py): a neighbour exchange and one
+        halo launch per shard. The other levels keep the unsharded kernel
+        on the global tensor, the counterpart of the reference's GSPMD
+        fallback (fluca_tpu/solvers/mg.py:229-290). The reference's size
+        gate (prod(N) < 256*256 stays unsharded) is a TPU tuning choice and
+        is not carried over. ``grid=None``, or a degenerate grid of one
+        shard, restores the unsharded kernels. ``sharded_levels`` lists
+        the shapes of the levels that run sharded."""
+        from fluca_tpu_torch.parallel.sharded import build_poisson_sharded
+
+        for lvl in self.levels:
+            lvl.sharded = None
+            if grid is not None and grid.size > 1 and grid.divides(lvl.mesh.N):
+                lvl.sharded = {mode: build_poisson_sharded(grid, lvl, mode, self.omega)
+                               for mode in cuda_stencil.POISSON_MODES}
+        self.sharded_levels = tuple(lvl.mesh.N for lvl in self.levels if lvl.sharded)
+
+    def _poisson(self, lvl: _Level, mode, p, b=None, w=None):
+        """The level's Poisson kernel in ``mode`` (the smoother's omega)."""
+        if lvl.sharded is not None:
+            return lvl.sharded[mode](p, b, w)
+        return self._kernel(mode, p, lvl.coeffs, b, w, self.omega)
+
     def _apply_level(self, lvl: _Level, p):
         """Shat p on one level."""
-        return self._kernel("apply", p, lvl.coeffs)
+        return self._poisson(lvl, "apply", p)
 
     def apply_op(self, p):
         """Top-level operator Shat (for CG)."""
@@ -210,13 +242,11 @@ class PoissonMG:
         if self.smoother == "chebyshev":
             return self._smooth_cheby(lvl, x, b, n)
         for _ in range(n):
-            x = self._kernel(
-                "smooth", x, lvl.coeffs, b, lvl.inv_diag, self.omega
-            )
+            x = self._poisson(lvl, "smooth", x, b, lvl.inv_diag)
         return x
 
     def _residual(self, lvl, x, b):
-        return self._kernel("residual", x, lvl.coeffs, b)
+        return self._poisson(lvl, "residual", x, b)
 
     def _smooth_cheby(self, lvl, x, b, n):
         """Chebyshev(n) smoothing on [lmax/4, lmax] of the

@@ -200,13 +200,18 @@ def test_bf16_wrappers_refuse_mixed_dtypes():
 def test_every_source_exports_every_instance():
     """Each CUDA source exports one C entry point per field dtype the
     wrappers take (load_library binds them all): the stencil kernels
-    f32, f64 and bf16, the chain's stages f32 and f64."""
+    f32, f64 and bf16, the chain's stages and the stencils' halo
+    instances f32 and f64."""
     for kernel in cuda_stencil.KERNELS:
         src = (cuda_stencil.CSRC_DIR / kernel.source).read_text()
-        exported = set(re.findall(r"^FLUCA_\w+_EXPORT\((\w+), ", src, re.M))
+        macro = "CHAIN3D" if kernel.name.startswith("chain3d") else kernel.name.upper()
+        exported = set(re.findall(rf"^FLUCA_{macro}_EXPORT\((\w+), ", src, re.M))
         assert exported == set(kernel.instances), kernel.name
     assert {k.name: k.instances for k in cuda_stencil.KERNELS[:4]} == dict.fromkeys(
         ("poisson2d", "momentum2d", "poisson3d", "momentum3d"), ("f32", "f64", "bf16"))
+    assert {k.name: k.instances for k in cuda_stencil.KERNELS[7:]} == dict.fromkeys(
+        ("poisson2d_halo", "momentum2d_halo", "poisson3d_halo", "momentum3d_halo"),
+        ("f32", "f64"))
     assert cuda_stencil.coef_dtype(BF16) == F32
     assert cuda_stencil.coef_dtype(F32) == F32
     assert cuda_stencil.coef_dtype(F64) == F64

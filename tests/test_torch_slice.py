@@ -130,7 +130,7 @@ def test_app_runs_on_cpu(capsys):
 
 @pytest.mark.parametrize("option", [
     "checkpoint", "load_checkpoint", "mesh_cart_create_from_file",
-    "ns_load_solution_from_file", "ns_view_solution", "parallel_grid",
+    "ns_load_solution_from_file", "ns_view_solution",
 ])
 def test_app_refuses_options_not_ported(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
