@@ -76,7 +76,19 @@ Phases:
      (SHARDED_RTOL); two planted edge-plane faults that both comparisons
      must catch; the apps with -parallel_grid 2x2 (64^2) and 2x2x2 (32^3);
      the halo instances timed beside the unsharded kernels;
- 11. ledger: every kernel wrapper records the (shape, instance, band set)
+ 11. probes: the bench and probe entry points (fluca_tpu_torch/bench.py,
+     fluca_tpu_torch/examples/) and their kernels (ops/probes.py,
+     csrc/probes.cu): copy_scale and copy_rolls against their plain
+     versions at max abs 0 at every shape and rows per block the path
+     launches, the three poisson3d_variant modes at 512x256x256, "rebuilt"
+     with true edges against the poisson3d apply at max abs 0, and the
+     stencils at the path's own shapes; then, counts at 0, the path:
+     bench.spmv_roofline (4096^2), bench.poisson3d_roofline (256^3),
+     bench.sharded_1x1_ratio (gated at 1.15), probe512, probe512split,
+     probe_poisson512 at 512x256x256 and profile512 at 128^3; then each
+     probe kernel timed beside its plain version, torch.mul for the copy,
+     and its bound;
+ 12. ledger: every kernel wrapper records the (shape, instance, band set)
      keys it launched at, and each check the key it covered; the script
      fails if any launched key went unchecked.
 It prints the kernels' JSON summary, then the card's name and power limit
@@ -100,7 +112,8 @@ import time
 import numpy as np
 import torch
 
-from fluca_tpu_torch import app
+from fluca_tpu_torch import app, bench
+from fluca_tpu_torch.examples import probe512, probe512split, probe_poisson512, profile512
 from fluca_tpu_torch.mesh.cart import CartMesh
 from fluca_tpu_torch.models.cavity import setup_cavity_2d, setup_cavity_3d
 from fluca_tpu_torch.models.channel import setup_channel_3d
@@ -109,7 +122,7 @@ from fluca_tpu_torch.ns import tables as T_
 from fluca_tpu_torch.ns.bc import BCType, BoundaryCondition, zero_velocity_bc
 from fluca_tpu_torch.ns.cnlinear import CNLinearConfig, UnfusedChain
 from fluca_tpu_torch.ns.operators import NSOperators
-from fluca_tpu_torch.ops import cuda_stencil
+from fluca_tpu_torch.ops import cuda_stencil, probes
 from fluca_tpu_torch.ops.chain3d import (
     CHAIN_ROWS, Chain3D, bands_fingerprint, build_chain_bands, chain3d_plain,
 )
@@ -1259,7 +1272,7 @@ def phase_ledger():
     launched at, and those no check covered. Fails if a key of the chain
     or of any other kernel went unchecked."""
     gaps = {}
-    for k in cuda_stencil.KERNELS:
+    for k in (*cuda_stencil.KERNELS, *probes.KERNELS):
         missing = k.unchecked()
         print(f"[ledger] {k.name}: {len(k.launched)} keys launched, "
               f"{len(k.launched & k.checked)} of them checked against the plain "
@@ -2028,6 +2041,265 @@ def phase_sharded(smi, entries, profile=False):
     return launches2d, launches3d
 
 
+# ----------------------------------------------------------------------
+# the bench and probe entry points
+# ----------------------------------------------------------------------
+
+# The TPU kernels each probe kernel replaces: the first as "replaces", the
+# rest as "also_replaces" (file:line of the function that reaches
+# pl.pallas_call).
+PROBE_REPLACES = {
+    "copy_scale": ("bench.py:139", ["bench.py:542", "examples/probe512.py:27",
+                                    "examples/probe512split.py:50",
+                                    "examples/probe512split.py:64",
+                                    "examples/probe_poisson512.py:110",
+                                    "examples/profile512.py:57"]),
+    "copy_rolls": ("examples/profile512.py:57", []),
+    "poisson3d_variant": ("examples/probe_poisson512.py:65", []),
+}
+BASELINE5 = (512, 256, 256)
+# The sizes the path runs at: the two rooflines' and sharded_1x1_ratio's
+# grids (bench.py's), probe512's sweep and momentum shapes, and the grid
+# profile512 runs at in the smoke.
+SPMV_N, POISSON3D_N = 4096, 256
+COPY_CASES = probe512.COPY_CASES
+MOMENTUM_SHAPES = probe512.MOMENTUM_SHAPES
+PROFILE_GRID = (128, 128, 128)
+# Operations per element: the copy 1 (a product), the copy with rolls 4,
+# the variants as the Poisson 3-D apply (22) but nocomp (1).
+PROBE_FLOPS = {"copy_scale": 1, "copy_rolls": 4, "rebuilt": 22, "noroll": 22, "nocomp": 1}
+
+
+def copy_shapes():
+    """(shape, rows) of every copy_scale launch of the path but the
+    profile's: probe512's sweep, spmv_roofline's (128 rows) and
+    poisson3d_roofline's (8 rows); probe512split and probe_poisson512 run
+    at the sweep's 512x256x256 and 256^3 with 8 rows."""
+    return (*((shape, rows) for shape, rows, _ in COPY_CASES), ((SPMV_N,) * 2, 128),
+            ((POISSON3D_N,) * 3, 8))
+
+
+def hold_exact(e, label, got, ref, kernel):
+    """A probe kernel's output against its plain version at max abs
+    difference 0 (one product by the same float32 factor, or the same
+    float32 terms added in the same order with __fmul_rn/__fadd_rn, which
+    the compiler does not contract); marks the ledger key."""
+    for g, r in zip(got, ref):
+        d = max_abs(g, r)
+        if d != 0.0:
+            raise AssertionError(f"{kernel.name} {label}: max abs {d:.3e} from the plain "
+                                 f"version (expected 0)")
+    e["checks"] += 1
+    kernel.mark_checked()
+
+
+def variant_inputs(N, gen):
+    """Level 0 of the channel of probe_poisson512 at ``N`` (its
+    coefficients), a random field and random edges from ``gen``."""
+    coeffs = probe_poisson512.channel_level0(N, "cuda").levels[0].coeffs
+    p = torch.randn(N, generator=gen, device="cuda")
+    edges = tuple(torch.randn(s, generator=gen, device="cuda")
+                  for s in probes.variant_edge_shapes(N))
+    return coeffs, p, edges
+
+
+def true_edges(p, periodic):
+    """The edges that make the variant "rebuilt" the Poisson apply: the
+    wrapped rows and columns on a periodic axis, zeros at a wall."""
+    def edge(a, idx):
+        e = p.narrow(a, idx, 1).contiguous()
+        return e if periodic[a] else torch.zeros_like(e)
+
+    return edge(1, p.shape[1] - 1), edge(1, 0), edge(2, p.shape[2] - 1), edge(2, 0)
+
+
+def check_probes(entries, gen):
+    """Each probe kernel against its plain version at every key the
+    bench and probe path and the timings launch it at: copy_scale one
+    and two pairs at the sweep's shapes and rows, at 256^3 (8 rows) and
+    at the profile's grid (8 and 4 rows); copy_rolls at 512x256x256 and
+    the profile's grid (8 and 4 rows); the three variants at 512x256x256
+    (rel err within KERNEL_RTOL for rebuilt and noroll, whose sums the
+    compiler may contract into FMAs; nocomp at max abs 0); and "rebuilt"
+    with true edges against the Poisson 3-D kernel's apply at max abs 0
+    (the same arithmetic, stencil_common.cuh)."""
+    cases = [*copy_shapes(), (PROFILE_GRID, 8), (PROFILE_GRID, 4)]
+    for shape, rows in cases:
+        a, b = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
+        for arrays in ((a,), (a, b)):
+            got = probes.copy_scale(*arrays, rows=rows)
+            got = (got,) if len(arrays) == 1 else got
+            ref = probes.copy_scale_plain(*arrays)
+            ref = (ref,) if len(arrays) == 1 else ref
+            hold_exact(entries["copy_scale"], f"{shape} rows {rows} x{len(arrays)}", got, ref,
+                       probes.copy_scale)
+        del a, b, got, ref
+    for shape, rows in ((BASELINE5, 8), (BASELINE5, 4), (PROFILE_GRID, 8), (PROFILE_GRID, 4)):
+        a = torch.randn(shape, generator=gen, device="cuda")
+        hold_exact(entries["copy_rolls"], f"{shape} rows {rows}",
+                   (probes.copy_rolls(a, rows=rows),), (probes.copy_rolls_plain(a),),
+                   probes.copy_rolls)
+    del a
+    coeffs, p, edges = variant_inputs(BASELINE5, gen)
+    e = entries["poisson3d_variant"]
+    for mode in probes.VARIANT_MODES:
+        got = probes.poisson3d_variant(mode, p, coeffs, edges)
+        ref = probes.poisson3d_variant_plain(mode, p, coeffs, edges)
+        torch.cuda.synchronize()
+        if mode == "nocomp":
+            hold_exact(e, mode, (got,), (ref,), probes.poisson3d_variant)
+        else:
+            check_kernel(e, f"poisson3d_variant {mode} {BASELINE5}", torch.float32, (got,),
+                         (ref,), probes.poisson3d_variant)
+            e["checks"] += 1
+    got = probes.poisson3d_variant("rebuilt", p, coeffs, true_edges(p, coeffs.periodic))
+    apply = cuda_stencil.poisson3d("apply", p, coeffs)
+    check_kernel(entries["poisson3d"], f"poisson3d apply probe_poisson512 {BASELINE5}",
+                 torch.float32, (apply,), (cuda_stencil.poisson3d_plain("apply", p, coeffs),),
+                 cuda_stencil.poisson3d)
+    d = max_abs(got, apply)
+    e["max_abs_vs_poisson3d"] = d
+    if d != 0.0:
+        raise AssertionError(f"poisson3d_variant rebuilt with true edges differs from the "
+                             f"poisson3d apply by {d:.3e}")
+    print("[probes] " + "; ".join(f"{k}: {entries[k]['checks']} checks, max abs err "
+                                  f"{entries[k]['max_abs_err']:.3e}" for k in PROBE_REPLACES)
+          + f"; rebuilt with true edges vs the poisson3d apply: max abs {d:.3e}", flush=True)
+
+
+def check_probe_path_stencils(entries, ns128):
+    """The stencil kernels at the keys only the bench and probe path
+    launches: the Poisson 3-D modes on the 256^3 wall level of
+    poisson3d_roofline, the Poisson 2-D halo instance on the one-shard
+    grid of sharded_1x1_ratio, the momentum kernel at probe512's (512,
+    128, 256) channel, and the chain and stencils of the profile's
+    channel (its bands have their own fingerprint)."""
+    rng = np.random.default_rng(17)
+    mesh = CartMesh.create((POISSON3D_N,) * 3)
+    mesh.set_uniform_coordinates(0, 1, 0, 1, 0, 1)
+    lvl = mg_mod._build_level(mesh, T_.axis_bcs(mesh, [zero_velocity_bc()] * 6), 1.0,
+                              torch.float32, "cuda")
+    check_poisson_modes(entries["poisson3d"], "poisson3d_roofline", rng, lvl.coeffs,
+                        lvl.inv_diag)
+    mesh = unit_mesh(SPMV_N, False)
+    lvl = mg_mod._build_level(mesh, T_.axis_bcs(mesh, [zero_velocity_bc()] * 4), 1.0,
+                              torch.float32, "cuda")
+    check_poisson_halo(entries, "sharded_1x1_ratio", make_device_grid(2, ["cuda"]), mesh,
+                       lvl.coeffs, lvl.inv_diag, rng)
+    del lvl
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    for N in MOMENTUM_SHAPES:
+        bands, f, v = probe512.channel_momentum(N, "cuda", gen)
+        got = cuda_stencil.momentum3d(bands, f, v)
+        ref = cuda_stencil.momentum3d_plain(bands, f, v)
+        torch.cuda.synchronize()
+        check_kernel(entries["momentum3d"], f"momentum3d probe512 {N}", torch.float32,
+                     got, ref, cuda_stencil.momentum3d)
+        del bands, f, v, got, ref
+    check_chain_solver(entries, f"profile512 {PROFILE_GRID}", ns128)
+    check_solver_stencils(entries, f"profile512 {PROFILE_GRID}", ns128)
+
+
+def time_probes(entries, gen):
+    """Device time (CUDA graph) of each probe kernel, its plain version
+    and, for the copy, torch.mul (the one PyTorch call that computes its
+    function), beside its bound: every copy shape of the path, copy_rolls
+    and the three variants at 512x256x256. The entries take the times at
+    512x256x256 (the copy at 8 rows, copy_rolls at 8, the variant
+    "rebuilt")."""
+    reps = {"calls": 20, "replays": 5, "iters": 20}
+    for shape, rows in copy_shapes():
+        a = torch.randn(shape, generator=gen, device="cuda")
+        n = a.numel()
+        t = time_one(f"copy_scale {shape} rows {rows}", lambda: probes.copy_scale(a, rows=rows),
+                     lambda: probes.copy_scale_plain(a), nbytes(a, a), n, **reps)
+        t["library_ms"] = graph_ms(lambda: torch.mul(a, probes.SCALE), 20, 5)
+        print(f"[time] torch.mul {shape}: {t['library_ms']:.5f} ms on the device", flush=True)
+        if shape == BASELINE5 and rows == 8:
+            entries["copy_scale"].update(t)
+    half = tuple(torch.randn((POISSON3D_N,) * 3, generator=gen, device="cuda")
+                 for _ in range(2))
+    time_one("copy_scale two 256^3 pairs in one launch rows 8",
+             lambda: probes.copy_scale(*half, rows=8), lambda: probes.copy_scale_plain(*half),
+             2 * nbytes(*half), 2 * half[0].numel(), **reps)
+    del a, half
+    a = torch.randn(BASELINE5, generator=gen, device="cuda")
+    for rows in (8, 4):
+        t = time_one(f"copy_rolls {BASELINE5} rows {rows}",
+                     lambda: probes.copy_rolls(a, rows=rows),
+                     lambda: probes.copy_rolls_plain(a), nbytes(a, a),
+                     PROBE_FLOPS["copy_rolls"] * a.numel(), **reps)
+        if rows == 8:
+            entries["copy_rolls"].update(t, library_ms=None)
+    del a
+    coeffs, p, edges = variant_inputs(BASELINE5, gen)
+    for mode in probes.VARIANT_MODES:
+        moved = nbytes(p, p) if mode == "nocomp" else nbytes(p, p, *edges, *coeff_tensors(coeffs))
+        t = time_one(f"poisson3d_variant {mode} {BASELINE5}",
+                     lambda: probes.poisson3d_variant(mode, p, coeffs, edges),
+                     lambda: probes.poisson3d_variant_plain(mode, p, coeffs, edges), moved,
+                     PROBE_FLOPS[mode] * p.numel(), calls=10, replays=4, iters=10)
+        if mode == "rebuilt":
+            entries["poisson3d_variant"].update(t, library_ms=None)
+
+
+def phase_probes(entries):
+    """The bench and probe entry points on the card: the probe kernels
+    checked (check_probes) and the stencils at the path's own keys
+    (check_probe_path_stencils); then, with every launch count at 0, the
+    path itself: bench.spmv_roofline (4096^2), bench.poisson3d_roofline
+    (256^3), bench.sharded_1x1_ratio (4096^2, under its ceiling of 1.15),
+    the probe512 sweep and its momentum timings, probe512split,
+    probe_poisson512 at 512x256x256 and profile512 at PROFILE_GRID; the
+    counts read after it. Then each probe kernel timed. Returns the
+    path's launches by kernel instance."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    check_probes(entries, gen)
+    ns128 = profile512.build(PROFILE_GRID, "cuda")
+    check_probe_path_stencils(entries, ns128)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cuda_stencil.reset_launch_counts()
+    probes.reset_launch_counts()
+    r2 = bench.spmv_roofline(N=SPMV_N, device="cuda")
+    r3 = bench.poisson3d_roofline(N=POISSON3D_N, device="cuda")
+    s = bench.sharded_1x1_ratio(N=SPMV_N, device="cuda")
+    p512 = probe512.run(device="cuda", copy_cases=COPY_CASES, momentum_shapes=MOMENTUM_SHAPES)
+    split = probe512split.run(device="cuda", shape=BASELINE5, half=(POISSON3D_N,) * 3)
+    pp = probe_poisson512.run(device="cuda", N=BASELINE5)
+    prof = profile512.profile(ns128)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in cuda_stencil.launch_counts(
+        (*cuda_stencil.KERNELS, *probes.KERNELS)).items() if n}
+    del ns128
+    # the profile's preconditioner keeps the unfused ABF stages (its bf16
+    # branch), so of the chain only the coupled stage runs
+    for name in (*PROBE_REPLACES, "poisson2d", "poisson3d", "poisson2d_halo", "momentum3d",
+                 "chain3d_coupled"):
+        if not launches.get(f"{name}_f32"):
+            raise AssertionError(f"kernel {name} was not launched by the bench and probe path")
+    for label, r in (("spmv_roofline 4096^2", r2), ("poisson3d_roofline 256^3", r3)):
+        print(f"[probes] bench.{label}: frac {r['frac']:.4f} (by bench.py's count), copy "
+              f"{r['gbps_copy']:.1f} GB/s ({r['copy_frac_peak']:.4f} of 3.35 TB/s), spmv "
+              f"{r['gbps_spmv']:.1f} GB/s ({r['spmv_frac_peak']:.4f} of 3.35 TB/s, every "
+              f"input), {r['us_per_apply']:.2f} us/apply, copy {r['us_per_copy']:.2f} us",
+              flush=True)
+    print(f"[probes] bench.sharded_1x1_ratio 4096^2: {s['ratio']:.4f} (ceiling "
+          f"{bench.PERF_CEILINGS['sharded_1x1_ratio']}), {s['us_sharded']:.2f} against "
+          f"{s['us_unsharded']:.2f} us", flush=True)
+    if not s["ratio"] <= bench.PERF_CEILINGS["sharded_1x1_ratio"]:
+        raise AssertionError(f"sharded_1x1_ratio {s['ratio']} above its ceiling")
+    for label, r in (("probe512", p512), ("probe512split", split),
+                     ("probe_poisson512", pp), (f"profile512 {PROFILE_GRID}", prof)):
+        print(f"[probes] {label}: {json.dumps(r)}", flush=True)
+    print(f"[probes] the path's launches: {launches}", flush=True)
+    time_probes(entries, gen)
+    print(f"[probes] done in {time.perf_counter() - t0:.2f} s", flush=True)
+    return launches
+
+
 def phase_profile(label, ns, cfg=None):
     """Device time by kernel over 3 warm steps of ``ns`` under ``cfg``
     (the production preset if None)."""
@@ -2128,6 +2400,18 @@ def main(argv=None) -> int:
     phase_channel512_bf16(smi, entries, profile=args.profile)
     phase_app3d(entries)
     launches_halo2d, launches_halo3d = phase_sharded(smi, entries, profile=args.profile)
+    probe_entries = {}
+    for name, (replaces, also) in PROBE_REPLACES.items():
+        probe_entries[name] = {"name": name, "route": "cuda",
+                               "source": "fluca_tpu_torch/csrc/probes.cu",
+                               "replaces": replaces, "also_replaces": also,
+                               "max_abs_err": 0.0, "max_rel_err": {torch.float32: 0.0},
+                               "checks": 0}
+    probe_launches = phase_probes({**entries, **probe_entries})
+    for name, e in probe_entries.items():
+        e.update(launches=probe_launches[f"{name}_f32"],
+                 launches_run="the bench and probe entry points (phase_probes)",
+                 shape="512x256x256")
     for name in (*CHAIN_NAMES, *(k + "_halo" for k in HALO)):
         report(name, entries[name]["checks"], entries[name])
     for k in HALO:
@@ -2163,6 +2447,7 @@ def main(argv=None) -> int:
                                          + ("_halo" if name.endswith("_halo") else "")]
         e.update(shape=shape, launches_run=run, launches=counts[name],
                  launches_per_step=round(counts[name] / steps, 2))
+    entries.update(probe_entries)
     phase_ledger()
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -2170,7 +2455,7 @@ def main(argv=None) -> int:
             "launches_per_step", "shape",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "unfused_ms", "unfused_launches", "kernels_ms", "unsharded_ms",
-            "max_abs_vs_unsharded")
+            "max_abs_vs_unsharded", "also_replaces", "max_abs_vs_poisson3d")
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                   for e in entries.values()]}))
     print(smi)

@@ -63,16 +63,15 @@ poisson3d_kernel(const T* __restrict__ p, const T* __restrict__ b,
     fluca::load3d(p, i + (di), j + (dj), k + (dk), N0, N1, N2, per0, per1, per2)
 
     const C pc = F::load(p + idx);
-    const C s0 = __ldg(a0 + i) * FLUCA_P(-1, 0, 0) + __ldg(a0 + N0 + i) * pc +
-                 __ldg(a0 + 2 * N0 + i) * FLUCA_P(1, 0, 0);
-    const C s1 = __ldg(c1 + j) * FLUCA_P(0, -1, 0) + __ldg(c1 + N1 + j) * pc +
-                 __ldg(c1 + 2 * N1 + j) * FLUCA_P(0, 1, 0);
-    const C s2 = __ldg(c2 + k) * FLUCA_P(0, 0, -1) + __ldg(c2 + N2 + k) * pc +
-                 __ldg(c2 + 2 * N2 + k) * FLUCA_P(0, 0, 1);
+    const C s0 = fluca::poisson3d_axis(a0, N0, i, FLUCA_P(-1, 0, 0), pc,
+                                       FLUCA_P(1, 0, 0));
+    const C s1 = fluca::poisson3d_axis(c1, N1, j, FLUCA_P(0, -1, 0), pc,
+                                       FLUCA_P(0, 1, 0));
+    const C s2 = fluca::poisson3d_axis(c2, N2, k, FLUCA_P(0, 0, -1), pc,
+                                       FLUCA_P(0, 0, 1));
 #undef FLUCA_P
-    const C hj = __ldg(h1 + j);
-    const C hk = __ldg(h2 + k);
-    const C sp = hj * hk * s0 + __ldg(h0 + i) * (hk * s1 + hj * s2);
+    const C sp = fluca::poisson3d_sp(s0, s1, s2, __ldg(h0 + i), __ldg(h1 + j),
+                                     __ldg(h2 + k));
 
     if (MODE == 0) {
         F::store(out + idx, sp);
@@ -177,16 +176,12 @@ poisson3d_halo_kernel(const fluca::HaloField<T, 3> p, const T* __restrict__ b,
 #define FLUCA_P(ax, off) fluca::halo_load(p, g, pos, ax, off)
 
     const C pc = F::load(p.x + idx);
-    const C s0 = __ldg(a0 + i) * FLUCA_P(0, -1) + __ldg(a0 + N0 + i) * pc +
-                 __ldg(a0 + 2 * N0 + i) * FLUCA_P(0, 1);
-    const C s1 = __ldg(c1 + j) * FLUCA_P(1, -1) + __ldg(c1 + N1 + j) * pc +
-                 __ldg(c1 + 2 * N1 + j) * FLUCA_P(1, 1);
-    const C s2 = __ldg(c2 + k) * FLUCA_P(2, -1) + __ldg(c2 + N2 + k) * pc +
-                 __ldg(c2 + 2 * N2 + k) * FLUCA_P(2, 1);
+    const C s0 = fluca::poisson3d_axis(a0, N0, i, FLUCA_P(0, -1), pc, FLUCA_P(0, 1));
+    const C s1 = fluca::poisson3d_axis(c1, N1, j, FLUCA_P(1, -1), pc, FLUCA_P(1, 1));
+    const C s2 = fluca::poisson3d_axis(c2, N2, k, FLUCA_P(2, -1), pc, FLUCA_P(2, 1));
 #undef FLUCA_P
-    const C hj = __ldg(h1 + j);
-    const C hk = __ldg(h2 + k);
-    const C sp = hj * hk * s0 + __ldg(h0 + i) * (hk * s1 + hj * s2);
+    const C sp = fluca::poisson3d_sp(s0, s1, s2, __ldg(h0 + i), __ldg(h1 + j),
+                                     __ldg(h2 + k));
 
     if (MODE == 0) {
         F::store(out + idx, sp);

@@ -76,6 +76,23 @@ __device__ __forceinline__ acc_t<T> load3d(const T* __restrict__ x, int i,
     return Field<T>::load(x + ((size_t)i * N1 + j) * N2 + k);
 }
 
+// The arithmetic of the 3-D Poisson apply, shared by csrc/poisson3d.cu
+// (its unsharded and halo kernels) and csrc/probes.cu (the stripped
+// variants), so that they round alike: one axis' sum
+// band[0,i] xm + band[1,i] xc + band[2,i] xp of a (3, n) band array, and
+// Sp = H1[j] H2[k] s0 + H0[i] (H2[k] s1 + H1[j] s2).
+template <typename C>
+__device__ __forceinline__ C poisson3d_axis(const C* __restrict__ band, int n,
+                                            int i, C xm, C xc, C xp) {
+    return __ldg(band + i) * xm + __ldg(band + n + i) * xc +
+           __ldg(band + 2 * n + i) * xp;
+}
+
+template <typename C>
+__device__ __forceinline__ C poisson3d_sp(C s0, C s1, C s2, C h0, C hj, C hk) {
+    return hj * hk * s0 + h0 * (hk * s1 + hj * s2);
+}
+
 // One thread per cell, the contiguous axis along threadIdx.x so a
 // warp reads 32 neighbouring addresses. In 3-D the block covers a
 // kBlockY x kBlockX patch of one (j, k) plane and blockIdx.z is the

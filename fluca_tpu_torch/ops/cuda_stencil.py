@@ -23,7 +23,9 @@ run:
 The CUDA sources live in ``fluca_tpu_torch/csrc``. They are compiled on
 first use with ``nvcc`` for ``sm_90a`` (one process per source, in
 parallel) into a shared library with a plain C interface, under ``build/fluca_tpu_torch/<source hash>/`` at the root
-of the checkout, and loaded with ctypes.
+of the checkout, and loaded with ctypes. The library also holds the
+bench's and the probes' kernels (``csrc/probes.cu``, wrapped by
+``ops/probes.py``).
 
 Each stencil kernel has three instances: float32 and float64
 (fields, coefficients and arithmetic in one type), and bfloat16 for the
@@ -66,7 +68,7 @@ from fluca_tpu_torch.parallel.mesh import DeviceGrid
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("poisson2d.cu", "momentum2d.cu", "poisson3d.cu", "momentum3d.cu",
-           "chain3d.cu")
+           "chain3d.cu", "probes.cu")
 HEADERS = ("stencil_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -151,15 +153,10 @@ def build_library() -> Path:
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, once per process,
-    with the argument types of every wrapper's entry points."""
-    lib = ctypes.CDLL(str(build_library()))
-    for kernel in KERNELS:
-        for sfx in kernel.instances:
-            fn = getattr(lib, f"fluca_{kernel.name}_{sfx}")
-            fn.argtypes = kernel.argtypes
-            fn.restype = ctypes.c_int
-    return lib
+    """Build (if needed) and load the kernel library, once per process.
+    Each wrapper sets the argument types of its entry points
+    (``_Kernel._entry``)."""
+    return ctypes.CDLL(str(build_library()))
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
@@ -247,6 +244,7 @@ class _Kernel:
         self.launched = set()
         self.checked = set()
         self.last_key = None
+        self._fns = {}
         self.reset()
 
     def reset(self) -> None:
@@ -261,11 +259,21 @@ class _Kernel:
         """Launch the ``dtype`` instance with ``args``; ``key`` is the
         (shape, band set) pair the ledger records with the instance."""
         sfx = _DTYPE_SUFFIX[dtype]
-        fn = getattr(load_library(), f"fluca_{self.name}_{sfx}")
-        _check_cuda(self.name, fn(*args))
+        _check_cuda(self.name, self._entry(sfx)(*args))
         self.launches_by_dtype[sfx] += 1
         self.last_key = (key[0], sfx, key[1])
         self.launched.add(self.last_key)
+
+    def _entry(self, sfx):
+        """The C entry point of instance ``sfx``, with its argument
+        types set at first use."""
+        fn = self._fns.get(sfx)
+        if fn is None:
+            fn = getattr(load_library(), f"fluca_{self.name}_{sfx}")
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fns[sfx] = fn
+        return fn
 
     def mark_checked(self) -> None:
         """Record the last launch's key as held against the plain
@@ -1403,3 +1411,9 @@ KERNELS = (poisson2d, momentum2d, poisson3d, momentum3d,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.reset()
+
+
+def launch_counts(kernels=KERNELS) -> dict:
+    """The launches of ``kernels`` since their last reset, by instance:
+    ``"<name>_<f32|f64|bf16>"``."""
+    return {f"{k.name}_{sfx}": n for k in kernels for sfx, n in k.launches_by_dtype.items()}

@@ -199,7 +199,7 @@ def test_bf16_wrappers_refuse_mixed_dtypes():
 
 def test_every_source_exports_every_instance():
     """Each CUDA source exports one C entry point per field dtype the
-    wrappers take (load_library binds them all): the stencil kernels
+    wrappers take (each wrapper binds its own at first launch): the stencil kernels
     f32, f64 and bf16, the chain's stages and the stencils' halo
     instances f32 and f64."""
     for kernel in cuda_stencil.KERNELS:
