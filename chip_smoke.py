@@ -30,6 +30,9 @@ Phases:
      plain version, with its bound, float32 and bf16: 2-D at 256^2 and
      4096^2, 3-D at 128^3; the chain's stages also beside the unfused
      sequence of banded operators they replace (and at 512x256x256 in 8);
+     the momentum 3-D halo instance on a (2, 2, 2) grid of the 128^3
+     channel (held against its plain version and the unsharded kernel
+     first);
   5. slice 2-D: the 256^2 Re 100 lid-driven cavity with the fixed-budget
      production solver, one step and advance(20), with the 2-D kernels'
      launch counts; then 5 steps against the plain float64 run on the CPU;
@@ -86,9 +89,14 @@ Phases:
      bench.spmv_roofline (4096^2), bench.poisson3d_roofline (256^3),
      bench.sharded_1x1_ratio (gated at 1.15), probe512, probe512split,
      probe_poisson512 at 512x256x256 and profile512 at 128^3; then each
-     probe kernel timed beside its plain version, torch.mul for the copy,
-     and its bound;
- 12. ledger: every kernel wrapper records the (shape, instance, band set)
+     probe kernel timed beside its plain version and its bound, the copy
+     also against torch.mul on the same buffer in turns (torch.mul,
+     copy_scale, copy_scale, torch.mul) at every shape of the path;
+ 12. resources: the registers, spills, stack and static shared memory of
+     the momentum 3-D and copy kernels, from a separate nvcc -Xptxas -v
+     compile of their sources run beside the build and finished before
+     the first check (the build's own flags unchanged);
+ 13. ledger: every kernel wrapper records the (shape, instance, band set)
      keys it launched at, and each check the key it covered; the script
      fails if any launched key went unchecked.
 It prints the kernels' JSON summary, then the card's name and power limit
@@ -105,6 +113,7 @@ import gc
 import io
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -386,6 +395,63 @@ def phase_build():
     lib = cuda_stencil.build_library()
     cuda_stencil.load_library()
     print(f"[build] {lib} in {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+# The sources whose kernels' registers, spills and shared memory the run
+# reports, each compiled once more with -Xptxas -v (the production build's
+# flags are not changed); and the kernels of each, by their mangled names.
+RESOURCE_SOURCES = ("momentum3d.cu", "probes.cu")
+RESOURCE_KERNELS = {
+    "momentum3d": r"momentum3d_kernelIfLb0E", "momentum3d_bf16": r"momentum3d_kernelI13__nv_bfloat16Lb0E",
+    "momentum3d (f64)": r"momentum3d_kernelIdLb0E", "momentum3d_halo": r"momentum3d_kernelIfLb1E",
+    "momentum3d_halo (f64)": r"momentum3d_kernelIdLb1E",
+    "copy_scale": r"copy_scale_kernelILi4ELi4E",
+    "copy_scale (float4, 2 rows in flight)": r"copy_scale_kernelILi4ELi2E",
+}
+
+
+def start_resource_report():
+    """Start the -Xptxas -v compiles of RESOURCE_SOURCES, one process
+    each, into the build directory; they run beside the build."""
+    out = cuda_stencil.build_dir() / "resources"
+    out.mkdir(parents=True, exist_ok=True)
+    return [subprocess.Popen([cuda_stencil._nvcc(), *cuda_stencil.NVCC_FLAGS, "-Xptxas", "-v",
+                              "-I", str(cuda_stencil.CSRC_DIR), "-c", "-o", str(out / f"{src}.o"),
+                              str(cuda_stencil.CSRC_DIR / src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in RESOURCE_SOURCES]
+
+
+def finish_resource_report(procs):
+    """Wait for the compiles; print each RESOURCE_KERNELS kernel's
+    registers, spill bytes, stack and static shared memory from ptxas
+    (its dynamic shared memory is the launch plan's), and return its
+    registers and spill bytes by label, for the kernels line."""
+    text = ""
+    for p in procs:
+        out, _ = p.communicate(timeout=600)
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{out}")
+        text += out
+    by_name, usage = {}, {}
+    for name, body in re.findall(r"Compiling entry function '(\S+)' for '\w+'\n(.*?)(?=ptxas info\s+: Compiling|\Z)",
+                                 text, re.S):
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                          body)
+        smem = re.search(r"(\d+) bytes smem", body)
+        by_name[name] = (int(regs.group(1)), *(int(x) for x in spill.groups()),
+                         int(smem.group(1)) if smem else 0)
+    for label, pattern in RESOURCE_KERNELS.items():
+        found = [u for name, u in by_name.items() if re.search(pattern, name)]
+        if len(found) != 1:
+            raise AssertionError(f"ptxas reported {len(found)} kernels for {label}")
+        regs, stack, spill_st, spill_ld, smem = found[0]
+        print(f"[resources] {label}: {regs} registers, {spill_st} bytes spill stores, "
+              f"{spill_ld} bytes spill loads, {stack} bytes stack, {smem} bytes static shared "
+              f"memory", flush=True)
+        usage[label] = {"registers": regs, "spill_bytes": spill_st + spill_ld}
+    return usage
 
 
 def step_v0f(ops, state, t):
@@ -1327,6 +1393,33 @@ def time_kernels3d(label, ns, dtype, calls=50, replays=20, iters=200):
     return out
 
 
+def time_momentum3d_halo(entries, label, ns, reps=None):
+    """The momentum 3-D halo instance of a (2, 2, 2) grid over the mesh
+    of ``ns``, float32, on its step factors: held against its plain
+    version and the unsharded kernel (check_momentum3d_halo), then timed
+    beside the unsharded kernel (the 512x256x256 channel's in
+    phase_sharded)."""
+    impl, ops = ns.impl, ns.impl.ops
+    sm = build_momentum_sharded(make_device_grid(3, shape=(2, 2, 2)), ns.mesh, ops.axbcs,
+                                impl.rho, impl.mu, impl.dt, torch.float32)
+    v0f = step_v0f(ops, ns.state, ns.t)
+    check_momentum3d_halo(entries, label, sm, ns.state["U"], v0f, np.random.default_rng(25))
+    prepped = sm.prep(ns.state["U"], v0f)
+    f = prepped.factors
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    v = tuple(torch.randn(ns.mesh.N, generator=gen, device="cuda") for _ in range(3))
+    ve = tuple(field_edges(sm.layout, x) for x in v)
+    faces = [*f.U0, *(F for row in f.v0f for F in row)]
+    return time_halo(
+        f"momentum3d_halo {label} on (2, 2, 2) (step factors)", lambda: sm.apply(v, prepped),
+        lambda: sm.launch(v, prepped, ve), lambda: cuda_stencil.momentum3d(sm.bands, f, v),
+        lambda: cuda_stencil.momentum3d_halo_plain(sm.bands, f, v, sm.layout, ve,
+                                                   prepped.face_hi),
+        nbytes(*sm.bands.b, *v, *faces, *v) + sum(edge_bytes(e) for e in ve)
+        + edge_bytes(prepped.face_hi), int(np.prod(ns.mesh.N)) * FLOPS_PER_CELL["momentum3d"],
+        reps or {"calls": 20, "replays": 10}, plain_eager=True)
+
+
 def phase_slice3d(smi, entries):
     """The 64x64x32 cavity and the 128^3 channel, production preset;
     the channel also with the bf16 preconditioner on both inner solves,
@@ -2213,8 +2306,18 @@ def time_probes(entries, gen):
         n = a.numel()
         t = time_one(f"copy_scale {shape} rows {rows}", lambda: probes.copy_scale(a, rows=rows),
                      lambda: probes.copy_scale_plain(a), nbytes(a, a), n, **reps)
-        t["library_ms"] = graph_ms(lambda: torch.mul(a, probes.SCALE), 20, 5)
-        print(f"[time] torch.mul {shape}: {t['library_ms']:.5f} ms on the device", flush=True)
+        # the kernel against torch.mul on the same buffer, in turns
+        # (library, kernel, kernel, library); the entry takes the means
+        turns = [graph_ms(fn, 20, 5) for fn in (lambda: torch.mul(a, probes.SCALE),
+                                                lambda: probes.copy_scale(a, rows=rows))]
+        turns += [graph_ms(fn, 20, 5) for fn in (lambda: probes.copy_scale(a, rows=rows),
+                                                 lambda: torch.mul(a, probes.SCALE))]
+        lib_ms, ker_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        t.update(ms=ker_ms, library_ms=lib_ms)
+        print(f"[time] copy_scale {shape} rows {rows} against torch.mul in turns: torch.mul "
+              f"{turns[0]:.5f}, copy_scale {turns[1]:.5f}, copy_scale {turns[2]:.5f}, torch.mul "
+              f"{turns[3]:.5f} ms; copy_scale / torch.mul {ker_ms / lib_ms:.4f}; "
+              f"{100 * t['bound_ms'] / ker_ms:.1f} % of 3.35 TB/s", flush=True)
         if shape == BASELINE5 and rows == 8:
             entries["copy_scale"].update(t)
     half = tuple(torch.randn((POISSON3D_N,) * 3, generator=gen, device="cuda")
@@ -2340,7 +2443,9 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     smi = phase_device()
+    resources = start_resource_report()
     phase_build()
+    usage = finish_resource_report(resources)
 
     def entry(kernel, replaces, dtypes):
         return {"name": kernel + ("_bf16" if dtypes == (BF16,) else ""),
@@ -2388,6 +2493,7 @@ def main(argv=None) -> int:
     t16 = time_kernels3d("128^3", chan, BF16)
     entries["poisson3d_bf16"].update(t16["apply"])
     entries["momentum3d_bf16"].update(t16["momentum"])
+    time_momentum3d_halo(entries, "channel 128^3", chan)
     del runs, chan
     launches, cpu256 = phase_slice(smi)
     launches_bf16 = phase_slice_bf16(smi, cpu256)
@@ -2448,6 +2554,9 @@ def main(argv=None) -> int:
         e.update(shape=shape, launches_run=run, launches=counts[name],
                  launches_per_step=round(counts[name] / steps, 2))
     entries.update(probe_entries)
+    for label, u in usage.items():
+        if label in entries:
+            entries[label].update(u)
     phase_ledger()
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -2455,7 +2564,8 @@ def main(argv=None) -> int:
             "launches_per_step", "shape",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "unfused_ms", "unfused_launches", "kernels_ms", "unsharded_ms",
-            "max_abs_vs_unsharded", "also_replaces", "max_abs_vs_poisson3d")
+            "max_abs_vs_unsharded", "also_replaces", "max_abs_vs_poisson3d", "registers",
+            "spill_bytes")
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                   for e in entries.values()]}))
     print(smi)

@@ -43,22 +43,32 @@
 // 3.35 TB/s).
 //
 // What the design does about it: copy_scale views its field as R rows
-// (the leading axis) of C elements; a block of 256 threads covers `rows`
-// rows by 256 * VEC columns and each thread walks its column down the
-// rows, four rows of loads in flight before their stores, with 16-byte
-// (float4) accesses where the row length and the addresses allow (VEC 4),
-// else 4-byte ones. `rows` is the card's counterpart of the TPU's tile
-// height: it trades the number of blocks against the work of each.
-// copy_rolls takes the same tiling with one element per thread, so its
-// two neighbour loads hit lines the block's warps read anyway.
+// (the leading axis) of C elements; a block covers `rows` rows by
+// threads * VEC columns, with 16-byte (float4) accesses where the row
+// length and the addresses allow (VEC 4), else 4-byte ones. `rows` is the
+// card's counterpart of the TPU's tile height: it trades the number of
+// blocks against the work of each. Inside its rows a block has `groups`
+// rows of threads (blockDim.y), which take the rows in turn, each thread
+// with U rows of loads in flight before their stores; the loads and
+// stores are cache-streaming (__ldcs/__stcs: every byte is touched once,
+// and the fields the path copies are larger than the 50 MB L2). The
+// geometry comes from the host (fluca_tpu_torch.ops.probes.copy_scale_plan):
+// 32 threads x 32 groups where `rows` is large (the 2-D tiles of 128-256
+// rows), so that each thread has at most a few rows and the card a
+// million threads; 64 x 4 for the 3-D tiles of 8-16 rows. The first
+// design (256 threads per block, each walking `rows` rows 4 at a time)
+// had 128 blocks, one per SM, and ~16 KB of loads in flight per SM at
+// 4096^2 with 128 rows, and lost to torch.mul by 12 % there.
+// copy_rolls takes one element per thread and `rows` planes per block,
+// so its two neighbour loads hit lines the block's warps read anyway.
 #include "stencil_common.cuh"
 
 namespace {
 
 constexpr float kScale = 1.0000001f;
 constexpr float kTiny = 1e-20f;
-constexpr int kCopyThreads = 256;
-constexpr int kUnroll = 4;
+constexpr int kCopyThreads = 256;     // copy_rolls' block
+constexpr int kCopyMaxThreads = 1024;
 
 __device__ __forceinline__ float scaled(float x) { return __fmul_rn(x, kScale); }
 
@@ -78,8 +88,11 @@ struct VecOf<4> {
 };
 
 // blockIdx.z picks the pair; R rows of C floats, C a multiple of VEC.
-template <int VEC>
-__global__ void __launch_bounds__(kCopyThreads)
+// Block (x, y) covers rows y*rows .. and columns x*blockDim.x ..; thread
+// row g of blockDim.y takes the block's rows g, g + blockDim.y, ...,
+// U of them per pass (the loads predicated, then the stores).
+template <int VEC, int U>
+__global__ void __launch_bounds__(kCopyMaxThreads)
 copy_scale_kernel(const float* __restrict__ a0, float* __restrict__ o0,
                   const float* __restrict__ a1, float* __restrict__ o1,
                   long long R, long long C, int rows) {
@@ -91,15 +104,16 @@ copy_scale_kernel(const float* __restrict__ a0, float* __restrict__ o0,
     if (c >= cv) return;
     const long long r0 = (long long)blockIdx.y * rows;
     const long long r1 = min(r0 + rows, R);
-    long long r = r0;
-    for (; r + kUnroll <= r1; r += kUnroll) {
-        V v[kUnroll];
+    const int step = blockDim.y;
+    for (long long r = r0 + threadIdx.y; r < r1; r += (long long)U * step) {
+        V v[U];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) v[u] = __ldg(a + (r + u) * cv + c);
+        for (int u = 0; u < U; ++u)
+            if (r + u * step < r1) v[u] = __ldcs(a + (r + u * step) * cv + c);
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) o[(r + u) * cv + c] = scaled(v[u]);
+        for (int u = 0; u < U; ++u)
+            if (r + u * step < r1) __stcs(o + (r + u * step) * cv + c, scaled(v[u]));
     }
-    for (; r < r1; ++r) o[r * cv + c] = scaled(__ldg(a + r * cv + c));
 }
 
 // One thread per element e = j * N2 + k of a plane, `rows` planes per
@@ -181,29 +195,36 @@ poisson3d_variant_kernel(const float* __restrict__ p,
 
 // a0 o0 [a1 o1]: npairs (1 or 2) pairs of R x C floats; vec 4 takes
 // float4 accesses (C % 4 == 0, 16-byte aligned addresses), vec 1 floats.
+// threads x groups: the block, unroll 2 or 4 (copy_scale_plan).
 extern "C" int fluca_copy_scale_f32(const void* a0, void* o0, const void* a1,
                                     void* o1, long long R, long long C,
-                                    int rows, int npairs, int vec,
-                                    void* stream) {
+                                    int rows, int npairs, int vec, int threads,
+                                    int groups, int unroll, void* stream) {
     if (R <= 0 || C <= 0 || rows <= 0 || npairs < 1 || npairs > 2 ||
-        (vec != 1 && vec != 4) || C % vec)
+        (vec != 1 && vec != 4) || C % vec || threads <= 0 || threads % 32 ||
+        groups <= 0 || threads * groups > kCopyMaxThreads ||
+        (unroll != 2 && unroll != 4))
         return (int)cudaErrorInvalidValue;
-    const long long gx = (C / vec + kCopyThreads - 1) / kCopyThreads;
+    const long long gx = (C / vec + threads - 1) / threads;
     const long long gy = (R + rows - 1) / rows;
     if (gx > 0x7fffffffLL || gy > fluca::kMaxGridYZ)
         return (int)cudaErrorInvalidConfiguration;
-    const dim3 grid((unsigned)gx, (unsigned)gy, npairs);
+    const dim3 grid((unsigned)gx, (unsigned)gy, npairs), block(threads, groups);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const float* A0 = static_cast<const float*>(a0);
     const float* A1 = static_cast<const float*>(npairs == 2 ? a1 : a0);
     float* O0 = static_cast<float*>(o0);
     float* O1 = static_cast<float*>(npairs == 2 ? o1 : o0);
-    if (vec == 4)
-        copy_scale_kernel<4><<<grid, kCopyThreads, 0, s>>>(A0, O0, A1, O1, R, C,
-                                                          rows);
-    else
-        copy_scale_kernel<1><<<grid, kCopyThreads, 0, s>>>(A0, O0, A1, O1, R, C,
-                                                          rows);
+#define FLUCA_COPY(VEC, U) \
+    copy_scale_kernel<VEC, U><<<grid, block, 0, s>>>(A0, O0, A1, O1, R, C, rows)
+    if (vec == 4) {
+        if (unroll == 2) FLUCA_COPY(4, 2);
+        else FLUCA_COPY(4, 4);
+    } else {
+        if (unroll == 2) FLUCA_COPY(1, 2);
+        else FLUCA_COPY(1, 4);
+    }
+#undef FLUCA_COPY
     return (int)cudaGetLastError();
 }
 

@@ -3,6 +3,19 @@
 // Neighbour reads follow fluca_tpu_torch.ops.banded.shifted: a read
 // outside a non-periodic axis is 0, a read outside a periodic axis
 // wraps around the whole (global) axis.
+//
+// Who uses what:
+// - Field<T>::load/store, acc_t: every kernel;
+// - load2d/load3d (the wrap or zero decided per load by in_axis):
+//   poisson2d.cu, momentum2d.cu, poisson3d.cu and probes.cu's
+//   poisson3d_variant;
+// - poisson3d_axis/poisson3d_sp: poisson3d.cu and probes.cu;
+// - kBlockX/kBlockY, grid2d/grid3d: every kernel but momentum3d.cu;
+// - HaloGeom, HaloField, halo_load, halo_offset: the *_halo kernels,
+//   and momentum3d.cu's +-2 reads (wall rows only);
+// - mad (a fused multiply-add whatever the context): momentum3d.cu.
+//   momentum3d.cu resolves each neighbour's wrap or zero once per thread
+//   and plane (its own Nb/resolve), not per load as load3d does.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,6 +54,15 @@ struct Field<__nv_bfloat16> {
 
 template <typename T>
 using acc_t = typename Field<T>::acc;
+
+// a * b + c rounded once, whatever the context it is inlined into, so
+// that two kernels that call one arithmetic function round alike.
+__device__ __forceinline__ float mad(float a, float b, float c) {
+    return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double mad(double a, double b, double c) {
+    return __fma_rn(a, b, c);
+}
 
 __device__ __forceinline__ int wrap_index(int k, int n) {
     k %= n;

@@ -81,7 +81,8 @@ _DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
 POISSON_MODES = {"apply": 0, "residual": 1, "smooth": 2}
 # The CUDA grid's y extent (one block row per 8 rows of the field).
 _MAX_ROWS = 65535 * 8
-# The CUDA grid's z extent (one block per plane of a 3-D field).
+# The CUDA grid's z extent (one block per plane of a 3-D field), and its
+# y extent.
 _MAX_PLANES = 65535
 
 
@@ -789,6 +790,66 @@ class Momentum3DFactors:
                    bands.shape, bands.periodic)
 
 
+# The launch geometry of csrc/momentum3d.cu: a block of 32 x ``rows``
+# threads owns a (rows x 32) tile of the (j, k) plane and marches along
+# axis 0 over ``run`` planes, one cell per thread. ``run`` is about
+# n0 * tiles / MOMENTUM3D_TARGET_BLOCKS, kept within MOMENTUM3D_RUNS and
+# evened out over the planes: every block re-reads two planes of v (the
+# ring's first two) and stages its band rows, so short runs cost bytes,
+# and long ones leave too few blocks to hide the loads' latency (on the
+# H100 16 planes were best at 128^3 and for a (2, 2, 2) shard of
+# 512x256x256, 32 at 512x256x256). The block stages its band rows in
+# shared memory, MOMENTUM3D_BAND_PITCH values per index (the 27 rows
+# padded to whole 16-byte vectors), and one flag word per plane of its
+# run.
+MOMENTUM3D_LANES = 32
+MOMENTUM3D_TILE_ROWS = 4  # kTileRows of csrc/momentum3d.cu, which refuses another
+MOMENTUM3D_BAND_PITCH = 28
+MOMENTUM3D_RUNS = (16, 32)
+MOMENTUM3D_TARGET_BLOCKS = 8192
+# a block's dynamic shared memory
+MAX_SMEM_BYTES = 232448
+
+
+@dataclass(frozen=True)
+class Momentum3DPlan:
+    """One launch of csrc/momentum3d.cu: the grid (k tiles, j tiles,
+    runs), the block's rows (its y extent; 32 threads along k), the
+    planes of a run and the dynamic shared memory."""
+
+    grid: tuple[int, int, int]
+    rows: int
+    run: int
+    smem: int
+
+    def as_c(self):
+        return (ctypes.c_int * 6)(*self.grid, self.rows, self.run, self.smem)
+
+
+@functools.lru_cache(maxsize=None)
+def momentum3d_launch_plan(shape, dtype) -> Momentum3DPlan:
+    """The launch of the momentum 3-D kernel on a block of ``shape``
+    cells (the grid, or one shard's block) with fields in ``dtype``:
+    every cell computed by exactly one thread. Raises where the shape
+    does not fit the CUDA grid or the shared memory."""
+    shape = tuple(int(n) for n in shape)
+    if len(shape) != 3 or min(shape) < 1:
+        raise ValueError(f"momentum3d: no launch for the shape {shape}")
+    n0, n1, n2 = shape
+    rows = MOMENTUM3D_TILE_ROWS
+    gx, gy = -(-n2 // MOMENTUM3D_LANES), -(-n1 // rows)
+    lo, hi = MOMENTUM3D_RUNS
+    run = min(n0, max(lo, min(hi, n0 * gx * gy // MOMENTUM3D_TARGET_BLOCKS)))
+    gz = -(-n0 // run)
+    run = -(-n0 // gz)
+    smem = (coef_dtype(dtype).itemsize * MOMENTUM3D_BAND_PITCH * (run + rows + MOMENTUM3D_LANES)
+            + 4 * run)
+    if gy > _MAX_PLANES or gz > _MAX_PLANES or gx >= 2**31 or smem > MAX_SMEM_BYTES:
+        raise ValueError(f"momentum3d: the shape {shape} does not fit the card "
+                         f"(grid {(gx, gy, gz)}, {smem} bytes of shared memory)")
+    return Momentum3DPlan((gx, gy, gz), rows, run, smem)
+
+
 def momentum3d_plain(bands: Momentum3DBands, f: Momentum3DFactors, v):
     """Plain PyTorch version of the momentum 3-D kernel: A v from the
     kernel's own inputs (the bands, the face factors and v), written
@@ -854,7 +915,7 @@ class Momentum3DKernel(_Kernel):
     bands in its ``coef_dtype``."""
 
     name = "momentum3d"
-    argtypes = _PTRS_3D
+    argtypes = [ctypes.POINTER(_VP), _CI, _CI, _CI, _CI, _CI, _CI, ctypes.POINTER(_CI), _VP]
 
     def __call__(self, bands: Momentum3DBands, f: Momentum3DFactors, v):
         if len(v) != 3:
@@ -875,14 +936,12 @@ class Momentum3DKernel(_Kernel):
         _check_tensors(self.name, ref, {f"v[{e}]": x for e, x in enumerate(v)})
         if _launch_target(self.name, ref) == "cpu":
             return momentum3d_plain(bands, f, v)
-        N0, N1, N2 = bands.shape
-        if 0 in (N0, N1, N2) or N0 > _MAX_PLANES or N1 > _MAX_ROWS:
-            raise ValueError(f"{self.name}: unsupported shape {(N0, N1, N2)}")
+        plan = momentum3d_launch_plan(bands.shape, ref.dtype)
         out = tuple(torch.empty_like(x) for x in v)
         ptrs = (ctypes.c_void_p * 21)(*(t.data_ptr() for t in (
             *bands.b, *v, *f.U0, *(F for row in f.v0f for F in row), *out)))
-        self._launch(ref.dtype, (bands.shape, bands.periodic), ptrs, N0, N1, N2,
-                     *(int(x) for x in bands.periodic), _stream_ptr(ref))
+        self._launch(ref.dtype, (bands.shape, bands.periodic), ptrs, *bands.shape,
+                     *(int(x) for x in bands.periodic), plan.as_c(), _stream_ptr(ref))
         return out
 
 
@@ -1241,7 +1300,7 @@ class Momentum3DHaloKernel(_Kernel):
     name = "momentum3d_halo"
     source = "momentum3d.cu"
     instances = ("f32", "f64")
-    argtypes = [_PP, _PL, _VP]
+    argtypes = [_PP, _PL, ctypes.POINTER(_CI), _VP]
 
     def __call__(self, bands: Momentum3DBands, f: Momentum3DFactors, v, layout,
                  v_edges, face_hi):
@@ -1276,9 +1335,7 @@ class Momentum3DHaloKernel(_Kernel):
                                  f"stride")
         if _launch_target(self.name, ref) == "cpu":
             return momentum3d_halo_plain(bands, f, v, layout, v_edges, face_hi)
-        N0, N1, _ = layout.local
-        if N0 > _MAX_PLANES or N1 > _MAX_ROWS:
-            raise ValueError(f"{self.name}: unsupported local shape {layout.local}")
+        plan = momentum3d_launch_plan(layout.local, ref.dtype).as_c()
         out = tuple(torch.empty_like(x) for x in v)
         fst = [x for a in range(3) for x in f.U0[a].stride()]
         fest = [x for a in range(3)
@@ -1292,7 +1349,8 @@ class Momentum3DHaloKernel(_Kernel):
                     *(_ptr(x, start) for x in (*v, *faces, *out)),
                     *(p for e in v_edges for p in _edge_ptrs(layout, k, e)),
                     *self._face_hi_ptrs(layout, k, face_hi)]
-            self._launch(ref.dtype, layout.key, (_VP * len(ptrs))(*ptrs), geom, stream)
+            self._launch(ref.dtype, layout.key, (_VP * len(ptrs))(*ptrs), geom, plan,
+                         stream)
         return out
 
     @staticmethod

@@ -30,6 +30,9 @@ the kernel or raises. Each wrapper counts its launches and keeps the
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -42,9 +45,12 @@ from fluca_tpu_torch.ops.cuda_stencil import (
 SCALE = 1.0000001
 TINY = 1e-20
 VARIANT_MODES = {"rebuilt": 0, "noroll": 1, "nocomp": 2}
-# csrc/probes.cu: threads per block of the copies, and the CUDA grid's
-# y extent
-_COPY_THREADS = 256
+# csrc/probes.cu copy_scale_kernel's block by rows per block: (threads
+# across the columns, rows of threads that take the block's rows in turn,
+# rows of loads in flight per thread), for rows of at least the first
+# entry; measured on the H100 against torch.mul at the path's shapes.
+# And the CUDA grid's y extent.
+COPY_GEOMETRY = ((64, (32, 32, 4)), (5, (64, 4, 4)), (1, (128, 4, 2)))
 _MAX_GRID_Y = 65535
 _VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -78,6 +84,41 @@ def _check_rows(name, rows, n):
 # copy_scale
 # ----------------------------------------------------------------------
 
+@dataclass(frozen=True)
+class CopyPlan:
+    """One copy_scale launch over a field viewed as R rows of C floats:
+    blocks of ``threads`` x ``groups`` threads, each block ``rows`` rows
+    by ``threads * vec`` columns, thread row g taking the block's rows g,
+    g + groups, ..., ``unroll`` per pass; ``grid`` is (column blocks, row
+    blocks) and a launch has one z layer per pair."""
+
+    grid: tuple[int, int]
+    rows: int
+    vec: int
+    threads: int
+    groups: int
+    unroll: int
+
+
+@functools.lru_cache(maxsize=None)
+def copy_scale_plan(shape, rows, vec) -> CopyPlan:
+    """The launch of copy_scale on a field of ``shape`` (a tuple; leading
+    axis the rows) with ``rows`` rows per block and ``vec`` floats per
+    access, from COPY_GEOMETRY (the groups at most ``rows``). Raises where
+    the row blocks exceed the CUDA grid. Cached: the bench times the copy
+    eagerly, and the wrapper's host time must stay below the kernel's."""
+    R = int(shape[0])
+    C = math.prod(shape[1:])
+    if R < 1 or C < 1 or vec not in (1, 4) or C % vec:
+        raise ValueError(f"copy_scale: no launch for shape {tuple(shape)}, vec {vec}")
+    _check_rows("copy_scale", rows, R)
+    threads, groups, unroll = next(g for least, g in COPY_GEOMETRY if rows >= least)
+    gx = -(-(C // vec) // threads)
+    if gx >= 2**31:
+        raise ValueError(f"copy_scale: {C} columns exceed the grid")
+    return CopyPlan((gx, -(-R // rows)), rows, vec, threads, min(groups, rows), unroll)
+
+
 def copy_scale_plain(*arrays):
     """Plain PyTorch version of ``copy_scale``: each array times
     1.0000001, in its own dtype (the factor rounded to it once)."""
@@ -89,14 +130,14 @@ class CopyScaleKernel(_Kernel):
     """Wrapper of the copy kernel (csrc/probes.cu copy_scale_kernel):
     ``copy_scale(a[, b], rows=TM)`` returns ``a * 1.0000001`` (and ``b *
     1.0000001``) from one launch over both pairs. The ledger keys a
-    launch by (shape, (rows, pairs, vec)): vec 4 where the row length is
-    a multiple of 4 and every address is 16-byte aligned (float4
-    accesses), else 1."""
+    launch by (shape, (rows, pairs, vec, threads, groups, unroll)): vec 4
+    where the row length is a multiple of 4 and every address is 16-byte
+    aligned (float4 accesses), else 1; the rest from ``copy_scale_plan``."""
 
     name = "copy_scale"
     source = "probes.cu"
     instances = ("f32",)
-    argtypes = [_VP, _VP, _VP, _VP, _CL, _CL, _CI, _CI, _CI, _VP]
+    argtypes = [_VP, _VP, _VP, _VP, _CL, _CL, _CI, _CI, _CI, _CI, _CI, _CI, _VP]
 
     def __call__(self, *arrays, rows):
         if len(arrays) not in (1, 2):
@@ -115,11 +156,14 @@ class CopyScaleKernel(_Kernel):
         outs = tuple(torch.empty_like(x) for x in arrays)
         vec = 4 if C % 4 == 0 and all(t.data_ptr() % 16 == 0
                                       for t in (*arrays, *outs)) else 1
+        plan = copy_scale_plan(tuple(a.shape), rows, vec)
         pairs = [(x.data_ptr(), o.data_ptr()) for x, o in zip(arrays, outs)]
         if len(pairs) == 1:
             pairs.append((None, None))
-        self._launch(torch.float32, (tuple(a.shape), (rows, len(arrays), vec)),
-                     *pairs[0], *pairs[1], R, C, rows, len(arrays), vec, _stream_ptr(a))
+        geometry = (plan.threads, plan.groups, plan.unroll)
+        self._launch(torch.float32, (tuple(a.shape), (rows, len(arrays), vec, *geometry)),
+                     *pairs[0], *pairs[1], R, C, rows, len(arrays), vec, *geometry,
+                     _stream_ptr(a))
         return outs[0] if len(outs) == 1 else outs
 
 

@@ -44,6 +44,7 @@ from fluca_tpu_torch.ns.operators import NSOperators as TOps
 from fluca_tpu_torch.ops import cuda_stencil
 from fluca_tpu_torch.solvers.mg import PoissonMG as TMG
 
+from torch_launch_cover import momentum3d_cells, momentum3d_cover
 from torch_threads import one_thread_per_worker  # noqa: F401 (autouse fixture)
 
 RTOL = 1e-12
@@ -298,3 +299,50 @@ def test_3d_wrappers_refuse_bad_arguments():
         cuda_stencil.momentum3d(other.mom_bands3d, f, to_t(v))
     with pytest.raises(ValueError):  # the 2-D stack does not exist in 3-D
         to.build_momentum_coeffs_stacked(to_t(U0), to_t(v0f))
+
+
+# ----------------------------------------------------------------------
+# the momentum 3-D kernel's launch plan (csrc/momentum3d.cu)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(5, 7, 33), (8, 8, 8), (16, 16, 256), (1, 1, 1),
+                                   (128, 128, 128), (512, 256, 256)])
+def test_momentum3d_launch_plan_covers_every_cell_once(shape, dtype):
+    """Every cell is computed by exactly one thread, the grid is within
+    the card's limits and the shared memory within a block's 227 KB;
+    thread by thread up to 16^2 x 256 cells, by the per-axis maps (whose
+    product is the kernel's map) at every size."""
+    plan = cuda_stencil.momentum3d_launch_plan(shape, dtype)
+    assert all(np.all(c == 1) for c in momentum3d_cover(plan, shape))
+    if np.prod(shape) <= 16 * 16 * 256:
+        assert np.all(momentum3d_cells(plan, shape) == 1)
+    gx, gy, gz = plan.grid
+    assert gx < 2**31 and gy <= 65535 and gz <= 65535
+    assert 32 * plan.rows <= 256
+    assert plan.smem == (cuda_stencil.coef_dtype(dtype).itemsize * 28
+                         * (plan.run + plan.rows + 32) + 4 * plan.run)
+    assert plan.smem <= cuda_stencil.MAX_SMEM_BYTES
+    assert list(plan.as_c()) == [*plan.grid, plan.rows, plan.run, plan.smem]
+
+
+@pytest.mark.parametrize("shape, run", [((512, 256, 256), 32), ((128, 128, 128), 16),
+                                        ((256, 128, 128), 16), ((7, 9, 40), 7)])
+def test_momentum3d_launch_plan_runs(shape, run):
+    """The runs: 32 planes at 512x256x256, 16 at 128^3 and at a (2, 2, 2)
+    shard of 512x256x256 (the lengths the H100 ran fastest), the whole
+    axis where it is shorter; >= 4 blocks per SM of the H100's 132 at the
+    channel sizes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = cuda_stencil.momentum3d_launch_plan(shape, dtype)
+        assert (plan.rows, plan.run) == (4, run)
+        if shape[0] >= 128:
+            assert np.prod(plan.grid) >= 4 * 132
+
+
+@pytest.mark.parametrize("shape", [(5_000_000, 1, 1),       # more runs than the grid's z extent
+                                   (1, 65535 * 4 + 1, 1),   # more row tiles than its y extent
+                                   (4, 4, 0), (4, 4)])
+def test_momentum3d_launch_plan_refuses_what_cannot_fit(shape):
+    with pytest.raises(ValueError):
+        cuda_stencil.momentum3d_launch_plan(shape, torch.float32)

@@ -34,6 +34,7 @@ from jax.experimental.pallas import tpu as pltpu
 from fluca_tpu.ops.pallas_stencil import _roll, poisson3d_tile_edges
 from fluca_tpu_torch.ops import cuda_stencil, probes
 
+from torch_launch_cover import copy_cover
 from torch_threads import one_thread_per_worker  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -285,3 +286,40 @@ def test_probes_source_exports_every_instance():
     assert {k.source for k in probes.KERNELS} == {"probes.cu"}
     assert "probes.cu" in cuda_stencil.SOURCES
     assert "--use_fast_math" not in cuda_stencil.NVCC_FLAGS
+
+
+# every (shape, rows) at which bench.py and the probes launch the copy:
+# probe512's sweep, spmv_roofline (4096^2, 128), poisson3d_roofline and
+# probe512split (256^3, 8), probe_poisson512 (512x256x256, 8), and
+# profile512's TM 8 and 4 at the 512 channel and at the smoke's 128^3
+COPY_LAUNCHES = [((512, 256, 256), 8), ((512, 256, 256), 16), ((256, 256, 256), 8),
+                 ((8192, 4096), 256), ((16384, 4096), 256), ((4096, 4096), 128),
+                 ((512, 256, 256), 4), ((128, 128, 128), 8), ((128, 128, 128), 4)]
+
+
+@pytest.mark.parametrize("shape, rows, vec", [
+    *((shape, rows, vec) for shape, rows in COPY_LAUNCHES for vec in (4, 1)),
+    ((37, 12, 8), 8, 4), ((33, 7), 4, 1), ((300, 8), 256, 4), ((5, 3), 16, 1)])
+def test_copy_scale_plan_covers_every_element_once(shape, rows, vec):
+    """Every (row, column) of the field is copied by exactly one thread,
+    within the grid; at the path's own shapes the launch keeps >= 32 KB
+    of loads in flight per SM of the H100 (132 SMs)."""
+    R, C = shape[0], int(np.prod(shape[1:]))
+    plan = probes.copy_scale_plan(shape, rows, vec)
+    by_row, by_col = copy_cover(plan, R, C // vec)
+    assert np.all(by_row == 1) and np.all(by_col == 1)
+    assert plan.grid[1] <= 65535 and plan.threads * plan.groups <= 1024
+    assert plan.threads % 32 == 0 and plan.unroll in (2, 4) and plan.groups <= rows
+    if (shape, rows) in COPY_LAUNCHES and vec == 4:
+        threads = plan.grid[0] * plan.grid[1] * plan.threads * plan.groups
+        in_flight = threads * min(plan.unroll, -(-rows // plan.groups)) * 4 * vec
+        assert in_flight / 132 >= 32 * 1024
+
+
+def test_copy_scale_plan_refuses_what_cannot_fit():
+    with pytest.raises(ValueError):  # more row blocks than the grid's y extent
+        probes.copy_scale_plan((65536 * 2, 4), 1, 4)
+    with pytest.raises(ValueError):  # rows of 6 floats in float4
+        probes.copy_scale_plan((8, 6), 8, 4)
+    with pytest.raises(ValueError):
+        probes.copy_scale_plan((8, 4), 0, 4)

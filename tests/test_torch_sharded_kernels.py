@@ -48,6 +48,7 @@ from fluca_tpu_torch.parallel.mesh import make_device_grid
 from fluca_tpu_torch.parallel.sharded import field_edges, halo_layout
 from fluca_tpu_torch.solvers.mg import PoissonMG as TMG
 
+from torch_launch_cover import momentum3d_cells, momentum3d_cover
 from torch_threads import one_thread_per_worker  # noqa: F401 (autouse fixture)
 
 RTOL = 1e-12
@@ -245,3 +246,35 @@ def test_far_reads_meet_zero_coefficients():
     tW[18, 8, 3] = 1.0
     with pytest.raises(ValueError, match="-2 read past the edge plane of axis 0"):
         cs.momentum2d_halo(tW, *tv, layout, *(field_edges(layout, x) for x in tv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("N, shape", [((16, 16, 256), (2, 2, 2)), ((10, 14, 66), (2, 2, 2)),
+                                      ((12, 10, 70), (2, 1, 2)), ((16, 16, 16), (1, 1, 1)),
+                                      ((512, 256, 256), (2, 2, 2))])
+def test_momentum3d_halo_launch_plan_covers_every_cell_once(N, shape, dtype):
+    """The halo instance launches the plan of the shards' local block
+    (momentum3d_launch_plan(layout.local)) once per shard: every cell of
+    every block is computed by exactly one thread, so the shards cover
+    the grid once; within the card's grid and shared-memory limits."""
+    layout = cs.HaloLayout(make_device_grid(3, ["cpu"], shape=shape), N, (True, False, True))
+    plan = cs.momentum3d_launch_plan(layout.local, dtype)
+    c0, c1, c2 = momentum3d_cover(plan, layout.local)
+    counts = [np.zeros(n, int) for n in N]
+    for k in layout.grid.shards():
+        for a, c in enumerate((c0, c1, c2)):
+            if all(x == 0 for b, x in enumerate(k) if b != a):
+                s = layout.start(k)[a]
+                counts[a][s:s + layout.local[a]] += c
+    assert all(np.all(c == 1) for c in counts)
+    if np.prod(layout.local) <= 8 * 8 * 128:
+        assert np.all(momentum3d_cells(plan, layout.local) == 1)
+    assert plan.grid[1] <= 65535 and plan.grid[2] <= 65535
+    assert plan.smem <= cs.MAX_SMEM_BYTES
+
+
+def test_momentum3d_halo_launch_plan_refuses_what_cannot_fit():
+    layout = cs.HaloLayout(make_device_grid(3, ["cpu"], shape=(2, 1, 1)),
+                           (10_000_000, 1, 1), (False,) * 3)
+    with pytest.raises(ValueError, match="does not fit"):
+        cs.momentum3d_launch_plan(layout.local, torch.float32)
