@@ -93,9 +93,10 @@ Phases:
      also against torch.mul on the same buffer in turns (torch.mul,
      copy_scale, copy_scale, torch.mul) at every shape of the path;
  12. resources: the registers, spills, stack and static shared memory of
-     the momentum 3-D and copy kernels, from a separate nvcc -Xptxas -v
-     compile of their sources run beside the build and finished before
-     the first check (the build's own flags unchanged);
+     the momentum 3-D, Poisson 3-D, chain and copy kernels, from a
+     separate nvcc -Xptxas -v compile of their sources run beside the
+     build and finished before the first check (the build's own flags
+     unchanged);
  13. ledger: every kernel wrapper records the (shape, instance, band set)
      keys it launched at, and each check the key it covered; the script
      fails if any launched key went unchecked.
@@ -400,11 +401,24 @@ def phase_build():
 # The sources whose kernels' registers, spills and shared memory the run
 # reports, each compiled once more with -Xptxas -v (the production build's
 # flags are not changed); and the kernels of each, by their mangled names.
-RESOURCE_SOURCES = ("momentum3d.cu", "probes.cu")
+RESOURCE_SOURCES = ("momentum3d.cu", "poisson3d.cu", "chain3d.cu", "probes.cu")
 RESOURCE_KERNELS = {
     "momentum3d": r"momentum3d_kernelIfLb0E", "momentum3d_bf16": r"momentum3d_kernelI13__nv_bfloat16Lb0E",
     "momentum3d (f64)": r"momentum3d_kernelIdLb0E", "momentum3d_halo": r"momentum3d_kernelIfLb1E",
     "momentum3d_halo (f64)": r"momentum3d_kernelIdLb1E",
+    # poisson3d_kernel<T, MODE, HALO>: the apply in the entries, the other
+    # modes printed beside it
+    "poisson3d": r"poisson3d_kernelIfLi0ELb0E", "poisson3d residual": r"poisson3d_kernelIfLi1ELb0E",
+    "poisson3d smooth": r"poisson3d_kernelIfLi2ELb0E",
+    "poisson3d_bf16": r"poisson3d_kernelI13__nv_bfloat16Li0ELb0E",
+    "poisson3d_bf16 smooth": r"poisson3d_kernelI13__nv_bfloat16Li2ELb0E",
+    "poisson3d (f64)": r"poisson3d_kernelIdLi0ELb0E", "poisson3d_halo": r"poisson3d_kernelIfLi0ELb1E",
+    "poisson3d_halo smooth": r"poisson3d_kernelIfLi2ELb1E",
+    "poisson3d_halo (f64)": r"poisson3d_kernelIdLi0ELb1E",
+    # chain3d_kernel<T, STAGE>
+    "chain3d_coupled": r"chain3d_kernelIfLi0E", "chain3d_pre": r"chain3d_kernelIfLi1E",
+    "chain3d_post": r"chain3d_kernelIfLi2E", "chain3d_coupled (f64)": r"chain3d_kernelIdLi0E",
+    "chain3d_pre (f64)": r"chain3d_kernelIdLi1E", "chain3d_post (f64)": r"chain3d_kernelIdLi2E",
     "copy_scale": r"copy_scale_kernelILi4ELi4E",
     "copy_scale (float4, 2 rows in flight)": r"copy_scale_kernelILi4ELi2E",
 }

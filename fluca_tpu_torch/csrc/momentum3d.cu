@@ -225,33 +225,6 @@ __device__ __forceinline__ void momentum_cell(const C (&vc)[3], const AxisIn<C>&
     axis_terms<2>(vc, a2, far2, acc);
 }
 
-// Where an in-plane read lands, resolved once per thread: in the block
-// (off: its offset in the plane), zero (off: the thread's own cell, a
-// valid address whose value is then dropped), or on the lo/hi edge
-// plane of a halo axis (off: its offset in that plane, at plane 0).
-enum Where : int { kIn = 0, kZero = 1, kLo = 2, kHi = 3 };
-struct Nb {
-    int where;
-    long long off;
-};
-
-// The read at index q along in-plane axis AX (1 or 2) of the thread at
-// (j, k); q is one past the block at most.
-template <int AX>
-__device__ __forceinline__ Nb resolve(const fluca::HaloGeom<3>& g, int j, int k, int q) {
-    const int n = g.n[AX];
-    if (q < 0 || q >= n) {
-        if (g.mode[AX] == fluca::kPeriodic) {
-            q += q < 0 ? n : -n;
-        } else if (g.mode[AX] == fluca::kHalo) {
-            return {q < 0 ? kLo : kHi, AX == 1 ? k * g.est[1][2] : j * g.est[2][1]};
-        } else {
-            return {kZero, j * g.st[1] + k};
-        }
-    }
-    return AX == 1 ? Nb{kIn, q * g.st[1] + k} : Nb{kIn, j * g.st[1] + q};
-}
-
 // One thread: the cell (j, k) of each plane of its block's run. HALO
 // false compiles the edge-plane reads out. The bounds ask for 4 blocks of
 // 128 threads per SM: at most 128 registers a thread, 16 warps an SM.
@@ -310,8 +283,8 @@ momentum3d_kernel(const Args<T> h) {
     const long long f0in = j * h.fst[0][1] + k;
     const long long f0hi = HALO ? j * h.fest[0][1] + k * h.fest[0][2] : 0;
     // in-plane neighbours and high faces, resolved once
-    const Nb jm = resolve<1>(g, j, k, j - 1), jp = resolve<1>(g, j, k, j + 1);
-    const Nb km = resolve<2>(g, j, k, k - 1), kp = resolve<2>(g, j, k, k + 1);
+    const fluca::Nb jm = fluca::resolve<1>(g, j, k, j - 1), jp = fluca::resolve<1>(g, j, k, j + 1);
+    const fluca::Nb km = fluca::resolve<2>(g, j, k, k - 1), kp = fluca::resolve<2>(g, j, k, k + 1);
     // axis 1: low face (i, j) in the arrays; high face (i, j+1) in the
     // arrays, at row 0 (periodic) or on the hi plane (halo)
     const long long f1lo = j * h.fst[1][1] + k;
@@ -329,7 +302,7 @@ momentum3d_kernel(const Args<T> h) {
     // the rows at a halo edge of axis 1 on a path of their own (a warp is
     // one row, so this is uniform over the warp); the other halo reads by
     // selects
-    const bool edge = HALO && (jm.where >= kLo || jp.where >= kLo);
+    const bool edge = HALO && (jm.where >= fluca::kLo || jp.where >= fluca::kLo);
 
     auto body = [&](auto edge_c) {
         constexpr bool EDGE = decltype(edge_c)::value;
@@ -348,19 +321,19 @@ momentum3d_kernel(const Args<T> h) {
             return F::load(p);
         };
         // v_e at an in-plane neighbour
-        auto read_j = [&](int e, int i, long long pl, const Nb& nb) -> C {
+        auto read_j = [&](int e, int i, long long pl, const fluca::Nb& nb) -> C {
             const T* p = h.v[e].x + pl + nb.off;
-            if (EDGE && nb.where >= kLo)
-                p = (nb.where == kLo ? h.v[e].lo[1] : h.v[e].hi[1]) + i * g.est[1][0] + nb.off;
+            if (EDGE && nb.where >= fluca::kLo)
+                p = (nb.where == fluca::kLo ? h.v[e].lo[1] : h.v[e].hi[1]) + i * g.est[1][0] + nb.off;
             const C x = F::load(p);
-            return nb.where == kZero ? C(0) : x;
+            return nb.where == fluca::kZero ? C(0) : x;
         };
-        auto read_k = [&](int e, int i, long long pl, const Nb& nb) -> C {
+        auto read_k = [&](int e, int i, long long pl, const fluca::Nb& nb) -> C {
             const T* p = h.v[e].x + pl + nb.off;
-            if (HALO && nb.where >= kLo)
-                p = (nb.where == kLo ? h.v[e].lo[2] : h.v[e].hi[2]) + i * g.est[2][0] + nb.off;
+            if (HALO && nb.where >= fluca::kLo)
+                p = (nb.where == fluca::kLo ? h.v[e].lo[2] : h.v[e].hi[2]) + i * g.est[2][0] + nb.off;
             const C x = F::load(p);
-            return nb.where == kZero ? C(0) : x;
+            return nb.where == fluca::kZero ? C(0) : x;
         };
 
         C vr[3][3];     // v of planes i-1, i, i+1: [plane][e]

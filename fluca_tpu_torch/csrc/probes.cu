@@ -33,8 +33,9 @@
 //   true edges it equals the poisson3d apply. On this card "the same
 //   DMAs, no math" cannot be had: the compiler drops loads whose values
 //   are unused. So NOCOMP is the copy through the variant's launch
-//   geometry (poisson3d's grid and 32x8 blocks, one thread per cell, its
-//   index arithmetic), and NOROLL reads no in-plane neighbour of p.
+//   geometry (the first poisson3d design's grid and 32x8 blocks, one
+//   thread per cell and plane, its index arithmetic), and NOROLL reads no
+//   in-plane neighbour of p.
 //
 // What bounds them on an H100: memory traffic. Each reads its input once
 // and writes its output once (the neighbour reads of copy_rolls and
@@ -184,9 +185,12 @@ poisson3d_variant_kernel(const float* __restrict__ p,
         fwd = k == 0 ? __ldg(le2 + col) : pc;
         bwd = k == N2 - 1 ? __ldg(re2 + col) : pc;
     }
-    const float s0 = fluca::poisson3d_axis(a0, N0, i, up, pc, dn);
-    const float s1 = fluca::poisson3d_axis(c1, N1, j, left, pc, right);
-    const float s2 = fluca::poisson3d_axis(c2, N2, k, fwd, pc, bwd);
+    const float s0 = fluca::poisson3d_axis(__ldg(a0 + i), __ldg(a0 + N0 + i),
+                                           __ldg(a0 + 2 * N0 + i), up, pc, dn);
+    const float s1 = fluca::poisson3d_axis(__ldg(c1 + j), __ldg(c1 + N1 + j),
+                                           __ldg(c1 + 2 * N1 + j), left, pc, right);
+    const float s2 = fluca::poisson3d_axis(__ldg(c2 + k), __ldg(c2 + N2 + k),
+                                           __ldg(c2 + 2 * N2 + k), fwd, pc, bwd);
     out[idx] = fluca::poisson3d_sp(s0, s1, s2, __ldg(h0 + i), __ldg(h1 + j),
                                    __ldg(h2 + k));
 }

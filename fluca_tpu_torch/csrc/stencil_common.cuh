@@ -7,15 +7,17 @@
 // Who uses what:
 // - Field<T>::load/store, acc_t: every kernel;
 // - load2d/load3d (the wrap or zero decided per load by in_axis):
-//   poisson2d.cu, momentum2d.cu, poisson3d.cu and probes.cu's
-//   poisson3d_variant;
+//   poisson2d.cu, momentum2d.cu and probes.cu's poisson3d_variant;
 // - poisson3d_axis/poisson3d_sp: poisson3d.cu and probes.cu;
-// - kBlockX/kBlockY, grid2d/grid3d: every kernel but momentum3d.cu;
+// - kBlockX/kBlockY, grid2d/grid3d: poisson2d.cu, momentum2d.cu and
+//   probes.cu's poisson3d_variant;
 // - HaloGeom, HaloField, halo_load, halo_offset: the *_halo kernels,
 //   and momentum3d.cu's +-2 reads (wall rows only);
-// - mad (a fused multiply-add whatever the context): momentum3d.cu.
-//   momentum3d.cu resolves each neighbour's wrap or zero once per thread
-//   and plane (its own Nb/resolve), not per load as load3d does.
+// - Where/Nb/resolve (an in-plane neighbour's wrap, zero or edge plane
+//   resolved once per thread, not per load as load3d does): momentum3d.cu
+//   and poisson3d.cu;
+// - mad (a fused multiply-add whatever the context): momentum3d.cu,
+//   poisson3d.cu (through poisson3d_axis/_sp), probes.cu and chain3d.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -99,20 +101,22 @@ __device__ __forceinline__ acc_t<T> load3d(const T* __restrict__ x, int i,
 }
 
 // The arithmetic of the 3-D Poisson apply, shared by csrc/poisson3d.cu
-// (its unsharded and halo kernels) and csrc/probes.cu (the stripped
-// variants), so that they round alike: one axis' sum
-// band[0,i] xm + band[1,i] xc + band[2,i] xp of a (3, n) band array, and
-// Sp = H1[j] H2[k] s0 + H0[i] (H2[k] s1 + H1[j] s2).
+// (its unsharded and halo instances) and csrc/probes.cu (the stripped
+// variants), so that they round alike whatever the code around them: one
+// axis' sum bm xm + bc xc + bp xp of the three band values at an index,
+// and Sp = H1[j] H2[k] s0 + H0[i] (H2[k] s1 + H1[j] s2), each a chain of
+// explicit fused multiply-adds. The order is the one nvcc chose for the
+// first design's expressions (b0 xm + b1 xc + b2 xp and
+// hj hk s0 + h0 (hk s1 + hj s2), contracted), so the redesigned kernel
+// equals it bit for bit, and the step its results.
 template <typename C>
-__device__ __forceinline__ C poisson3d_axis(const C* __restrict__ band, int n,
-                                            int i, C xm, C xc, C xp) {
-    return __ldg(band + i) * xm + __ldg(band + n + i) * xc +
-           __ldg(band + 2 * n + i) * xp;
+__device__ __forceinline__ C poisson3d_axis(C bm, C bc, C bp, C xm, C xc, C xp) {
+    return mad(bp, xp, mad(bm, xm, bc * xc));
 }
 
 template <typename C>
 __device__ __forceinline__ C poisson3d_sp(C s0, C s1, C s2, C h0, C hj, C hk) {
-    return hj * hk * s0 + h0 * (hk * s1 + hj * s2);
+    return mad(hj * hk, s0, h0 * mad(hj, s2, hk * s1));
 }
 
 // One thread per cell, the contiguous axis along threadIdx.x so a
@@ -224,6 +228,34 @@ __device__ __forceinline__ long long halo_offset(const HaloGeom<D>& g,
 #pragma unroll
     for (int b = 0; b < D; ++b) o += pos[b] * g.st[b];
     return o;
+}
+
+// Where an in-plane read lands, resolved once per thread: in the block
+// (off: its offset in the plane), zero (off: the thread's own cell, a
+// valid address whose value is then dropped), or on the lo/hi edge
+// plane of a halo axis (off: its offset in that plane, at plane 0).
+enum Where : int { kIn = 0, kZero = 1, kLo = 2, kHi = 3 };
+struct Nb {
+    int where;
+    long long off;
+};
+
+// The read at index q along in-plane axis AX (1 or 2) of the thread at
+// (j, k) of a block with cell strides g.st (g.st[2] == 1); q is one past
+// the block at most.
+template <int AX>
+__device__ __forceinline__ Nb resolve(const HaloGeom<3>& g, int j, int k, int q) {
+    const int n = g.n[AX];
+    if (q < 0 || q >= n) {
+        if (g.mode[AX] == kPeriodic) {
+            q += q < 0 ? n : -n;
+        } else if (g.mode[AX] == kHalo) {
+            return {q < 0 ? kLo : kHi, AX == 1 ? k * g.est[1][2] : j * g.est[2][1]};
+        } else {
+            return {kZero, j * g.st[1] + k};
+        }
+    }
+    return AX == 1 ? Nb{kIn, q * g.st[1] + k} : Nb{kIn, j * g.st[1] + q};
 }
 
 }  // namespace fluca

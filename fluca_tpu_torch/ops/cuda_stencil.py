@@ -81,8 +81,7 @@ _DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
 POISSON_MODES = {"apply": 0, "residual": 1, "smooth": 2}
 # The CUDA grid's y extent (one block row per 8 rows of the field).
 _MAX_ROWS = 65535 * 8
-# The CUDA grid's z extent (one block per plane of a 3-D field), and its
-# y extent.
+# The CUDA grid's y and z extents.
 _MAX_PLANES = 65535
 
 
@@ -161,9 +160,10 @@ def load_library() -> ctypes.CDLL:
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-# the C interface of the 3-D kernels: an array of device pointers, the
-# three extents, the three periodicity flags and the stream
-_PTRS_3D = [ctypes.POINTER(_VP), _CI, _CI, _CI, _CI, _CI, _CI, _VP]
+# the C interface of the momentum 3-D kernel and the chain stages: an
+# array of device pointers, the three extents, the three periodicity
+# flags, the launch plan and the stream
+_PTRS_3D = [ctypes.POINTER(_VP), _CI, _CI, _CI, _CI, _CI, _CI, ctypes.POINTER(_CI), _VP]
 
 
 def _check_cuda(name: str, err: int) -> None:
@@ -535,6 +535,61 @@ momentum2d = Momentum2DKernel()
 
 
 # ----------------------------------------------------------------------
+# The launch plans of the 3-D kernels
+# ----------------------------------------------------------------------
+#
+# csrc/momentum3d.cu, csrc/poisson3d.cu and csrc/chain3d.cu march along
+# axis 0: a block of 32 x ``rows`` threads owns a (rows x 32) tile of
+# the (j, k) plane and walks ``run`` planes, one index per thread, with
+# the neighbours along axis 0 in a register ring. The host picks the
+# geometry (cached per shape) and the C entry points check it against
+# the shape: a plan that does not tile the box is refused, never
+# relaunched.
+
+MARCH_LANES = 32  # kLanes of the marching kernels: threads of a block along k
+# a block's dynamic shared memory
+MAX_SMEM_BYTES = 232448
+
+
+@dataclass(frozen=True)
+class MarchPlan:
+    """One launch of a kernel that marches along axis 0 (csrc/momentum3d.cu,
+    csrc/poisson3d.cu, csrc/chain3d.cu): the grid (k tiles, j tiles,
+    runs), the block's rows (its y extent; 32 threads along k), the
+    planes of a run and the dynamic shared memory."""
+
+    grid: tuple[int, int, int]
+    rows: int
+    run: int
+    smem: int
+
+    def as_c(self):
+        return (ctypes.c_int * 6)(*self.grid, self.rows, self.run, self.smem)
+
+
+def _march_plan(name, shape, rows, runs, target_blocks, smem_of_run) -> MarchPlan:
+    """A block of 32 x ``rows`` threads per (rows x 32) tile of the (j, k)
+    plane of a box of ``shape`` indices, marching along axis 0: ``run``
+    about n0 * tiles / ``target_blocks``, kept within ``runs`` and the
+    axis and evened out over the planes. Raises where the shape does not
+    fit the CUDA grid or the shared memory."""
+    shape = tuple(int(n) for n in shape)
+    if len(shape) != 3 or min(shape) < 1:
+        raise ValueError(f"{name}: no launch for the shape {shape}")
+    n0, n1, n2 = shape
+    gx, gy = -(-n2 // MARCH_LANES), -(-n1 // rows)
+    lo, hi = runs
+    run = min(n0, max(lo, min(hi, n0 * gx * gy // target_blocks)))
+    gz = -(-n0 // run)
+    run = -(-n0 // gz)
+    smem = smem_of_run(run)
+    if gy > _MAX_PLANES or gz > _MAX_PLANES or gx >= 2**31 or smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: the shape {shape} does not fit the card "
+                         f"(grid {(gx, gy, gz)}, {smem} bytes of shared memory)")
+    return MarchPlan((gx, gy, gz), rows, run, smem)
+
+
+# ----------------------------------------------------------------------
 # Poisson 3-D
 # ----------------------------------------------------------------------
 
@@ -626,11 +681,40 @@ def _poisson3d(mode, p, c, b, w, omega, sh):
     return _poisson_mode(mode, sp, p, b, w, omega)
 
 
+# The launch geometry of csrc/poisson3d.cu: blocks of 32 x 4 threads (one
+# warp per row of the tile) that march over ``run`` planes, about
+# n0 * tiles / POISSON3D_TARGET_BLOCKS and at most POISSON3D_RUNS[1]. On
+# the H100 the smooth, the mode the V-cycle runs most, was fastest at rows
+# 4 and 8 planes on the two finest levels of the 512x256x256 channel and,
+# of rows 4, at 4 planes on the third (rows 4, 8, 16 and runs 1-64 swept
+# by examples/plans512.py; PERF.md section 6); the levels whose tiles and
+# planes number fewer than twice the target (about 8 blocks per SM of the
+# 132) run one plane per block. Every block
+# re-reads two planes of p (the ring's first two), so short runs cost
+# bytes. The block stages axis 0's three band values and width per plane
+# of its run in shared memory.
+POISSON3D_TILE_ROWS = 4
+POISSON3D_RUNS = (1, 8)
+POISSON3D_TARGET_BLOCKS = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def poisson3d_launch_plan(shape, dtype) -> MarchPlan:
+    """The launch of the Poisson 3-D kernel on a block of ``shape`` cells
+    (the grid, or one shard's block) with fields in ``dtype``: every cell
+    computed by exactly one thread. Raises where the shape does not fit
+    the CUDA grid."""
+    item = coef_dtype(dtype).itemsize
+    return _march_plan("poisson3d", shape, POISSON3D_TILE_ROWS, POISSON3D_RUNS,
+                       POISSON3D_TARGET_BLOCKS, lambda run: 4 * item * run)
+
+
 class Poisson3DKernel(_Kernel):
     """Wrapper of the Poisson 3-D kernel (csrc/poisson3d.cu)."""
 
     name = "poisson3d"
-    argtypes = [_CI, *[_VP] * 10, *[_CI] * 6, ctypes.c_double, _VP]
+    argtypes = [_CI, ctypes.POINTER(_VP), *[_CI] * 6, ctypes.c_double,
+                ctypes.POINTER(_CI), _VP]
 
     def __call__(self, mode, p, c: Poisson3DCoeffs, b=None, w=None,
                  omega=0.0):
@@ -643,19 +727,13 @@ class Poisson3DKernel(_Kernel):
         _check_tensors(self.name, p, fields, {"a0": c.a0})
         if _launch_target(self.name, p) == "cpu":
             return poisson3d_plain(mode, p, c, b, w, omega)
-        N0, N1, N2 = p.shape
-        if 0 in (N0, N1, N2) or N0 > _MAX_PLANES or N1 > _MAX_ROWS:
-            raise ValueError(f"{self.name}: unsupported shape {(N0, N1, N2)}")
+        plan = poisson3d_launch_plan(tuple(p.shape), p.dtype)
         out = torch.empty_like(p)
-        self._launch(
-            p.dtype, ((N0, N1, N2), c.periodic), POISSON_MODES[mode], p.data_ptr(),
-            b.data_ptr() if b is not None else None,
-            w.data_ptr() if w is not None else None,
-            c.a0.data_ptr(), c.c1.data_ptr(), c.c2.data_ptr(),
-            c.h0.data_ptr(), c.h1.data_ptr(), c.h2.data_ptr(),
-            out.data_ptr(), N0, N1, N2, *(int(x) for x in c.periodic),
-            float(omega), _stream_ptr(p),
-        )
+        ptrs = [t if t is None else t.data_ptr() for t in (
+            p, b, w, c.a0, c.c1, c.c2, c.h0, c.h1, c.h2, out)]
+        self._launch(p.dtype, (tuple(p.shape), c.periodic), POISSON_MODES[mode],
+                     (_VP * 10)(*ptrs), *p.shape, *(int(x) for x in c.periodic),
+                     float(omega), plan.as_c(), _stream_ptr(p))
         return out
 
 
@@ -802,52 +880,22 @@ class Momentum3DFactors:
 # shared memory, MOMENTUM3D_BAND_PITCH values per index (the 27 rows
 # padded to whole 16-byte vectors), and one flag word per plane of its
 # run.
-MOMENTUM3D_LANES = 32
 MOMENTUM3D_TILE_ROWS = 4  # kTileRows of csrc/momentum3d.cu, which refuses another
 MOMENTUM3D_BAND_PITCH = 28
 MOMENTUM3D_RUNS = (16, 32)
 MOMENTUM3D_TARGET_BLOCKS = 8192
-# a block's dynamic shared memory
-MAX_SMEM_BYTES = 232448
-
-
-@dataclass(frozen=True)
-class Momentum3DPlan:
-    """One launch of csrc/momentum3d.cu: the grid (k tiles, j tiles,
-    runs), the block's rows (its y extent; 32 threads along k), the
-    planes of a run and the dynamic shared memory."""
-
-    grid: tuple[int, int, int]
-    rows: int
-    run: int
-    smem: int
-
-    def as_c(self):
-        return (ctypes.c_int * 6)(*self.grid, self.rows, self.run, self.smem)
-
 
 @functools.lru_cache(maxsize=None)
-def momentum3d_launch_plan(shape, dtype) -> Momentum3DPlan:
+def momentum3d_launch_plan(shape, dtype) -> MarchPlan:
     """The launch of the momentum 3-D kernel on a block of ``shape``
     cells (the grid, or one shard's block) with fields in ``dtype``:
     every cell computed by exactly one thread. Raises where the shape
     does not fit the CUDA grid or the shared memory."""
-    shape = tuple(int(n) for n in shape)
-    if len(shape) != 3 or min(shape) < 1:
-        raise ValueError(f"momentum3d: no launch for the shape {shape}")
-    n0, n1, n2 = shape
     rows = MOMENTUM3D_TILE_ROWS
-    gx, gy = -(-n2 // MOMENTUM3D_LANES), -(-n1 // rows)
-    lo, hi = MOMENTUM3D_RUNS
-    run = min(n0, max(lo, min(hi, n0 * gx * gy // MOMENTUM3D_TARGET_BLOCKS)))
-    gz = -(-n0 // run)
-    run = -(-n0 // gz)
-    smem = (coef_dtype(dtype).itemsize * MOMENTUM3D_BAND_PITCH * (run + rows + MOMENTUM3D_LANES)
-            + 4 * run)
-    if gy > _MAX_PLANES or gz > _MAX_PLANES or gx >= 2**31 or smem > MAX_SMEM_BYTES:
-        raise ValueError(f"momentum3d: the shape {shape} does not fit the card "
-                         f"(grid {(gx, gy, gz)}, {smem} bytes of shared memory)")
-    return Momentum3DPlan((gx, gy, gz), rows, run, smem)
+    item = coef_dtype(dtype).itemsize
+    return _march_plan(
+        "momentum3d", shape, rows, MOMENTUM3D_RUNS, MOMENTUM3D_TARGET_BLOCKS,
+        lambda run: item * MOMENTUM3D_BAND_PITCH * (run + rows + MARCH_LANES) + 4 * run)
 
 
 def momentum3d_plain(bands: Momentum3DBands, f: Momentum3DFactors, v):
@@ -915,7 +963,7 @@ class Momentum3DKernel(_Kernel):
     bands in its ``coef_dtype``."""
 
     name = "momentum3d"
-    argtypes = [ctypes.POINTER(_VP), _CI, _CI, _CI, _CI, _CI, _CI, ctypes.POINTER(_CI), _VP]
+    argtypes = _PTRS_3D
 
     def __call__(self, bands: Momentum3DBands, f: Momentum3DFactors, v):
         if len(v) != 3:
@@ -1158,13 +1206,15 @@ class _PoissonHaloKernel(_Kernel):
     smoothed p, one launch per shard."""
 
     instances = ("f32", "f64")
-    argtypes = [_CI, _PP, _PL, ctypes.c_double, _VP]
 
     def __init__(self, ndim, unsharded, plain):
         self.ndim = ndim
         self.name = f"{unsharded.name}_halo"
         self._unsharded = unsharded
         self._plain = plain
+        # the 3-D instance takes the launch plan of the local block
+        self.argtypes = [_CI, _PP, _PL, ctypes.c_double,
+                         *([ctypes.POINTER(_CI)] if ndim == 3 else []), _VP]
         super().__init__()
 
     @property
@@ -1190,9 +1240,12 @@ class _PoissonHaloKernel(_Kernel):
         _check_halo_call(self.name, layout, p, {"p": (p, edges)})
         if _launch_target(self.name, p) == "cpu":
             return self._plain(mode, p, c, layout, edges, b, w, omega)
-        if 0 in layout.local or layout.local[0] > (_MAX_PLANES if self.ndim == 3
-                                                   else _MAX_ROWS):
+        if self.ndim == 3:
+            plan = (poisson3d_launch_plan(layout.local, p.dtype).as_c(),)
+        elif 0 in layout.local or layout.local[0] > _MAX_ROWS:
             raise ValueError(f"{self.name}: unsupported local shape {layout.local}")
+        else:
+            plan = ()
         out = torch.empty_like(p)
         geom = _halo_geom(layout, p.stride(), edges)
         stream = _stream_ptr(p)
@@ -1202,7 +1255,7 @@ class _PoissonHaloKernel(_Kernel):
                     w if w is None else _ptr(w, start), *self._coeff_ptrs(c, start),
                     _ptr(out, start), *_edge_ptrs(layout, k, edges)]
             self._launch(p.dtype, layout.key, POISSON_MODES[mode],
-                         (_VP * len(ptrs))(*ptrs), geom, float(omega), stream)
+                         (_VP * len(ptrs))(*ptrs), geom, float(omega), *plan, stream)
         return out
 
 
@@ -1390,6 +1443,47 @@ CHAIN_STAGES = {
 }
 
 
+# The launch geometry of csrc/chain3d.cu: blocks of 32 x 4 threads over
+# the face box nfaces(0) x nfaces(1) x nfaces(2), marching over ``run``
+# planes: about n0 * tiles / CHAIN3D_TARGET_BLOCKS (4 blocks per SM of the
+# H100's 132) within CHAIN3D_RUNS, evened out over the planes. On the
+# H100 runs of 32 were the fastest or within 1.2 % of it for every stage
+# at 512x256x256 and for coupled and pre at 128^3, of runs 16, 32 and 64
+# (post at 128^3: 19 % faster at 16; examples/plans512.py, PERF.md
+# section 6); the smaller grids take shorter runs to keep the blocks. The
+# block stages its band rows in shared memory, CHAIN3D_BAND_PITCH values
+# per index (the 24 rows padded so that the 16-byte reads of 8 lanes hit
+# distinct banks), and one far-row mask per plane of its run.
+CHAIN3D_TILE_ROWS = 4  # kTileRows of csrc/chain3d.cu, which refuses another
+CHAIN3D_RUNS = (4, 32)
+CHAIN3D_TARGET_BLOCKS = 512
+CHAIN3D_BAND_PITCH = 28
+
+
+def chain_face_box(shape, periodic) -> tuple[int, int, int]:
+    """nfaces(a) per axis: N + 1 on a non-periodic axis, N on a periodic one."""
+    return tuple(int(n) + (0 if per else 1) for n, per in zip(shape, periodic))
+
+
+@functools.lru_cache(maxsize=None)
+def chain3d_launch_plan(shape, periodic, dtype) -> MarchPlan:
+    """The launch of a chain stage on a grid of ``shape`` cells with the
+    ``periodic`` flags and fields in ``dtype``: every index of the face
+    box computed by exactly one thread. Raises where the box does not
+    fit the CUDA grid or the shared memory."""
+    if len(shape) != 3 or min(shape) < 1:
+        raise ValueError(f"chain3d: no launch for the shape {tuple(shape)}")
+    box = chain_face_box(shape, periodic)
+    if box[1] * box[2] >= 2**31:
+        raise ValueError(f"chain3d: the shape {tuple(shape)} does not fit the card "
+                         f"(a plane of {box[1] * box[2]} faces)")
+    rows = CHAIN3D_TILE_ROWS
+    item = torch.empty((), dtype=dtype).element_size()
+    return _march_plan(
+        "chain3d", box, rows, CHAIN3D_RUNS, CHAIN3D_TARGET_BLOCKS,
+        lambda run: item * CHAIN3D_BAND_PITCH * (run + rows + MARCH_LANES) + 4 * run)
+
+
 class Chain3DKernel(_Kernel):
     """Wrapper of one stage of the chain kernel (csrc/chain3d.cu) for a
     ``Chain3D`` (ops/chain3d.py): its bands, in the fields' dtype, its
@@ -1440,9 +1534,7 @@ class Chain3DKernel(_Kernel):
         if ref.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"{self.name}: no {ref.dtype} instance (float32 or "
                             f"float64)")
-        N0, N1, N2 = chain.shape
-        if 0 in chain.shape or N0 + 1 > _MAX_PLANES or N1 + 1 > _MAX_ROWS:
-            raise ValueError(f"{self.name}: unsupported shape {chain.shape}")
+        plan = chain3d_launch_plan(chain.shape, chain.periodic, ref.dtype)
         out = []
         for label, kind, count in outs:
             ts = tuple(torch.empty(chain.shape if kind == "cell" else _face_shape(
@@ -1452,8 +1544,8 @@ class Chain3DKernel(_Kernel):
         flat_out = [t for g in out for t in ((g,) if torch.is_tensor(g) else g)]
         tensors = (*chain.b, *fields.values(), *flat_out)
         ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
-        self._launch(ref.dtype, (chain.shape, chain.fingerprint), ptrs, N0, N1, N2,
-                     *(int(x) for x in chain.periodic), _stream_ptr(ref))
+        self._launch(ref.dtype, (chain.shape, chain.fingerprint), ptrs, *chain.shape,
+                     *(int(x) for x in chain.periodic), plan.as_c(), _stream_ptr(ref))
         return tuple(out)
 
 

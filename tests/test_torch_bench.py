@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from fluca_tpu_torch import bench
-from fluca_tpu_torch.examples import probe512, probe512split, probe_poisson512, profile512
+from fluca_tpu_torch.examples import (
+    kernels512, plans512, probe512, probe512split, probe_poisson512, profile512,
+)
 
 from torch_threads import one_thread_per_worker  # noqa: F401 (autouse fixture)
 
@@ -166,6 +168,15 @@ def test_cuda_without_a_card_raises():
         bench.main(["--quick"])
     with pytest.raises(RuntimeError, match="CUDA"):
         probe512split.main([])
+
+
+@pytest.mark.parametrize("example", [kernels512, plans512])
+def test_kernel_timing_examples_refuse_the_cpu(example):
+    """The kernel timings (CUDA graphs of the kernels' launches) need a
+    CUDA device: on the CPU they refuse, they do not time the plain
+    versions."""
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        example.main(["--device", CPU])
 
 
 def test_probe_entries_on_the_cpu():

@@ -22,7 +22,9 @@ sensitivity`` prints the 128^3 channel's first-step sensitivity to one
 rounding of its initial velocity, fluca_tpu's and the port's (a few
 minutes and ~5 GB on the CPU)."""
 
+import ctypes
 import itertools
+import re
 import sys
 import time
 
@@ -55,6 +57,7 @@ from fluca_tpu_torch.ns.cnlinear import UnfusedChain
 from fluca_tpu_torch.ns.operators import NSOperators as TOps
 from fluca_tpu_torch.ops import chain3d, cuda_stencil
 
+from torch_launch_cover import march3d_cells, march3d_cover
 from torch_threads import one_thread_per_worker  # noqa: F401 (autouse fixture)
 
 F64 = torch.float64
@@ -284,6 +287,72 @@ def test_chain_wrapper_refuses_bad_arguments():
         cuda_stencil.chain3d_pre(chain, v, U, p.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError, match="3-D mesh"):
         chain3d.Chain3D(TMesh.create((4, 4)), [], RHO, DT, F64, "cpu")
+
+
+# ----------------------------------------------------------------------
+# the chain kernel's launch plan (csrc/chain3d.cu)
+# ----------------------------------------------------------------------
+
+CHAIN_PLAN_SHAPES = [(512, 256, 256), (128, 128, 128), (64, 64, 32), (37, 29, 33),
+                     (16, 16, 16), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("periodic", list(itertools.product((False, True), repeat=3)))
+@pytest.mark.parametrize("shape", CHAIN_PLAN_SHAPES)
+def test_chain3d_launch_plan_covers_every_face_box_index_once(shape, periodic, dtype):
+    """Every index of the face box (N + 1 faces on a non-periodic axis, N
+    on a periodic one) is computed by exactly one thread (thread by thread
+    up to 16^2 x 256 indices, by the per-axis maps at every size), within
+    the card's grid, block and shared-memory limits; the shared memory
+    holds the block's band rows, CHAIN3D_BAND_PITCH per index, and one mask
+    per plane of its run."""
+    plan = cuda_stencil.chain3d_launch_plan(shape, periodic, dtype)
+    box = cuda_stencil.chain_face_box(shape, periodic)
+    assert box == tuple(n + (0 if per else 1) for n, per in zip(shape, periodic))
+    assert all(np.all(c == 1) for c in march3d_cover(plan, box))
+    if np.prod(box) <= 16 * 16 * 256:
+        assert np.all(march3d_cells(plan, box) == 1)
+    gx, gy, gz = plan.grid
+    assert gx < 2**31 and gy <= 65535 and gz <= 65535
+    assert plan.rows == cuda_stencil.CHAIN3D_TILE_ROWS == 4
+    assert plan.run <= cuda_stencil.CHAIN3D_RUNS[1]
+    if shape in ((512, 256, 256), (128, 128, 128)) and periodic == (True, False, True):
+        assert plan.run == 32  # the channels' run, the one the H100 ran fastest
+    blocks = gx * gy * gz
+    assert blocks >= min(cuda_stencil.CHAIN3D_TARGET_BLOCKS, box[0] * gx * gy // 4)
+    assert plan.smem == (dtype.itemsize * cuda_stencil.CHAIN3D_BAND_PITCH
+                         * (plan.run + plan.rows + 32) + 4 * plan.run)
+    assert plan.smem <= cuda_stencil.MAX_SMEM_BYTES
+    assert list(plan.as_c()) == [*plan.grid, plan.rows, plan.run, plan.smem]
+
+
+@pytest.mark.parametrize("shape, periodic", [((2_100_000, 1, 1), (False,) * 3),
+                                             ((1, 600_000, 1), (False,) * 3),
+                                             ((1, 50_000, 50_000), (True,) * 3),
+                                             ((4, 0, 4), (False,) * 3)])
+def test_chain3d_launch_plan_refuses_what_cannot_fit(shape, periodic):
+    """More runs or row tiles than the grid's z and y extents, a plane of
+    2^31 faces or more, an empty axis."""
+    with pytest.raises(ValueError):
+        cuda_stencil.chain3d_launch_plan(shape, periodic, torch.float32)
+
+
+def test_chain3d_source_exports_every_instance():
+    """csrc/chain3d.cu exports one C entry point per stage and instance of
+    the wrappers, each taking the launch plan; the stages are one kernel
+    template."""
+    src = (cuda_stencil.CSRC_DIR / "chain3d.cu").read_text()
+    stages = re.findall(r"^\s*FLUCA_CHAIN3D_STAGE\((\w+), k\w+, SFX, T\)", src, re.M)
+    sfxs = re.findall(r"^FLUCA_CHAIN3D_EXPORT\((\w+), \w+\)", src, re.M)
+    kernels = (cuda_stencil.chain3d_coupled, cuda_stencil.chain3d_pre, cuda_stencil.chain3d_post)
+    assert {f"chain3d_{st}_{sfx}" for st in stages for sfx in sfxs} == {
+        f"{k.name}_{sfx}" for k in kernels for sfx in k.instances}
+    assert re.search(r'extern "C" int fluca_chain3d_##NAME##_##SFX\(', src)
+    assert {k.source for k in kernels} == {"chain3d.cu"}
+    assert "chain3d.cu" in cuda_stencil.SOURCES
+    assert all(ctypes.POINTER(ctypes.c_int) in k.argtypes for k in kernels)
+    assert len(re.findall(r"__global__", src)) == 1
 
 
 # ----------------------------------------------------------------------

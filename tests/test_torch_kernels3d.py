@@ -15,6 +15,9 @@ The two compute the same stencil from the same float64 tables in
 another order of additions (measured ~2e-16); a wrong coefficient,
 offset, face factor or boundary read shows at 1e-3 or more."""
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -44,7 +47,7 @@ from fluca_tpu_torch.ns.operators import NSOperators as TOps
 from fluca_tpu_torch.ops import cuda_stencil
 from fluca_tpu_torch.solvers.mg import PoissonMG as TMG
 
-from torch_launch_cover import momentum3d_cells, momentum3d_cover
+from torch_launch_cover import march3d_cells, march3d_cover
 from torch_threads import one_thread_per_worker  # noqa: F401 (autouse fixture)
 
 RTOL = 1e-12
@@ -314,9 +317,9 @@ def test_momentum3d_launch_plan_covers_every_cell_once(shape, dtype):
     thread by thread up to 16^2 x 256 cells, by the per-axis maps (whose
     product is the kernel's map) at every size."""
     plan = cuda_stencil.momentum3d_launch_plan(shape, dtype)
-    assert all(np.all(c == 1) for c in momentum3d_cover(plan, shape))
+    assert all(np.all(c == 1) for c in march3d_cover(plan, shape))
     if np.prod(shape) <= 16 * 16 * 256:
-        assert np.all(momentum3d_cells(plan, shape) == 1)
+        assert np.all(march3d_cells(plan, shape) == 1)
     gx, gy, gz = plan.grid
     assert gx < 2**31 and gy <= 65535 and gz <= 65535
     assert 32 * plan.rows <= 256
@@ -346,3 +349,80 @@ def test_momentum3d_launch_plan_runs(shape, run):
 def test_momentum3d_launch_plan_refuses_what_cannot_fit(shape):
     with pytest.raises(ValueError):
         cuda_stencil.momentum3d_launch_plan(shape, torch.float32)
+
+
+# ----------------------------------------------------------------------
+# the Poisson 3-D kernel's launch plan (csrc/poisson3d.cu)
+# ----------------------------------------------------------------------
+
+# every multigrid level of the 512x256x256 channel (the coarse one
+# included), and the other 3-D shapes of the port's runs and checks
+POISSON3D_SHAPES = [(512, 256, 256), (256, 128, 128), (128, 64, 64), (64, 32, 32),
+                    (32, 16, 16), (16, 8, 8), (128, 128, 128), (64, 64, 32), (37, 29, 33),
+                    (16, 16, 16), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64, torch.bfloat16])
+@pytest.mark.parametrize("shape", POISSON3D_SHAPES)
+def test_poisson3d_launch_plan_covers_every_cell_once(shape, dtype):
+    """Every cell is computed by exactly one thread (thread by thread up
+    to 16^2 x 256 cells, by the per-axis maps at every size), within the
+    card's grid, block and shared-memory limits; the shared memory holds
+    the run's 4 axis-0 values per plane."""
+    plan = cuda_stencil.poisson3d_launch_plan(shape, dtype)
+    assert all(np.all(c == 1) for c in march3d_cover(plan, shape))
+    if np.prod(shape) <= 16 * 16 * 256:
+        assert np.all(march3d_cells(plan, shape) == 1)
+    gx, gy, gz = plan.grid
+    assert gx < 2**31 and gy <= 65535 and gz <= 65535
+    assert 32 * plan.rows <= 512
+    assert plan.smem == 4 * cuda_stencil.coef_dtype(dtype).itemsize * plan.run
+    assert list(plan.as_c()) == [*plan.grid, plan.rows, plan.run, plan.smem]
+
+
+@pytest.mark.parametrize("shape", POISSON3D_SHAPES)
+def test_poisson3d_launch_plan_fills_the_card(shape):
+    """At least POISSON3D_TARGET_BLOCKS blocks (about 8 per SM of the
+    H100's 132) where the shape has that many (rows x 32) tiles and
+    planes, else one plane per block; runs of at most 8 planes: 8 on the
+    two finest levels of the 512x256x256 channel and 4 on the third, the
+    runs its smooth was fastest at on the H100."""
+    plan = cuda_stencil.poisson3d_launch_plan(shape, torch.float32)
+    gx, gy, gz = plan.grid
+    units = shape[0] * gx * gy
+    target = cuda_stencil.POISSON3D_TARGET_BLOCKS
+    assert target >= 7 * 132
+    assert gx * gy * gz >= min(target, units)
+    assert gx * gy * gz >= min(132, units)
+    assert plan.run <= cuda_stencil.POISSON3D_RUNS[1]
+    if units < 2 * target:
+        assert plan.run == 1
+    runs = {(512, 256, 256): 8, (256, 128, 128): 8, (128, 64, 64): 4}
+    if shape in runs:
+        assert (plan.rows, plan.run) == (4, runs[shape])
+
+
+@pytest.mark.parametrize("shape", [(1, 65535 * 4 + 1, 1),       # more row tiles than the grid's y extent
+                                   (65536 * 8 + 1, 1, 1),       # more runs than its z extent
+                                   (4, 4, 0), (4, 4)])
+def test_poisson3d_launch_plan_refuses_what_cannot_fit(shape):
+    with pytest.raises(ValueError):
+        cuda_stencil.poisson3d_launch_plan(shape, torch.float32)
+
+
+def test_poisson3d_source_exports_every_instance():
+    """csrc/poisson3d.cu exports one C entry point per instance of the
+    unsharded and the halo wrappers, each taking the launch plan; the
+    instances are one kernel template."""
+    src = (cuda_stencil.CSRC_DIR / "poisson3d.cu").read_text()
+    exported = set(re.findall(r'^\s*extern "C" int fluca_(\w+)##SFX\(', src, re.M))
+    instances = set(re.findall(r"^FLUCA_POISSON3D(_HALO)?_EXPORT\((\w+),", src, re.M))
+    names = {f"poisson3d{'_halo' if halo else ''}_{sfx}" for halo, sfx in instances}
+    kernels = (cuda_stencil.poisson3d, cuda_stencil.poisson3d_halo)
+    assert exported == {"poisson3d_", "poisson3d_halo_"}
+    assert names == {f"{k.name}_{sfx}" for k in kernels for sfx in k.instances}
+    assert {k.source for k in kernels} == {"poisson3d.cu"}
+    assert "poisson3d.cu" in cuda_stencil.SOURCES
+    assert all(ctypes.POINTER(ctypes.c_int) in k.argtypes for k in kernels)
+    assert len(re.findall(r"__global__", src)) == 1
+    assert "load3d" not in src

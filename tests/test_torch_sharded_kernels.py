@@ -48,7 +48,7 @@ from fluca_tpu_torch.parallel.mesh import make_device_grid
 from fluca_tpu_torch.parallel.sharded import field_edges, halo_layout
 from fluca_tpu_torch.solvers.mg import PoissonMG as TMG
 
-from torch_launch_cover import momentum3d_cells, momentum3d_cover
+from torch_launch_cover import march3d_cells, march3d_cover
 from torch_threads import one_thread_per_worker  # noqa: F401 (autouse fixture)
 
 RTOL = 1e-12
@@ -259,7 +259,7 @@ def test_momentum3d_halo_launch_plan_covers_every_cell_once(N, shape, dtype):
     the grid once; within the card's grid and shared-memory limits."""
     layout = cs.HaloLayout(make_device_grid(3, ["cpu"], shape=shape), N, (True, False, True))
     plan = cs.momentum3d_launch_plan(layout.local, dtype)
-    c0, c1, c2 = momentum3d_cover(plan, layout.local)
+    c0, c1, c2 = march3d_cover(plan, layout.local)
     counts = [np.zeros(n, int) for n in N]
     for k in layout.grid.shards():
         for a, c in enumerate((c0, c1, c2)):
@@ -268,7 +268,7 @@ def test_momentum3d_halo_launch_plan_covers_every_cell_once(N, shape, dtype):
                 counts[a][s:s + layout.local[a]] += c
     assert all(np.all(c == 1) for c in counts)
     if np.prod(layout.local) <= 8 * 8 * 128:
-        assert np.all(momentum3d_cells(plan, layout.local) == 1)
+        assert np.all(march3d_cells(plan, layout.local) == 1)
     assert plan.grid[1] <= 65535 and plan.grid[2] <= 65535
     assert plan.smem <= cs.MAX_SMEM_BYTES
 
@@ -278,3 +278,45 @@ def test_momentum3d_halo_launch_plan_refuses_what_cannot_fit():
                            (10_000_000, 1, 1), (False,) * 3)
     with pytest.raises(ValueError, match="does not fit"):
         cs.momentum3d_launch_plan(layout.local, torch.float32)
+
+
+# the global grids of the Poisson 3-D halo plan's checks: every multigrid
+# level of the 512x256x256 channel down to the coarsest one a (4, 2, 1)
+# grid still divides, 128^3, 64x64x32 and 16^3
+POISSON3D_HALO_GRIDS = [(512, 256, 256), (256, 128, 128), (128, 64, 64), (64, 32, 32),
+                        (32, 16, 16), (16, 8, 8), (128, 128, 128), (64, 64, 32), (16, 16, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("shape", [(2, 2, 2), (4, 2, 1)])
+@pytest.mark.parametrize("N", POISSON3D_HALO_GRIDS)
+def test_poisson3d_halo_launch_plan_covers_every_cell_once(N, shape, dtype):
+    """The Poisson 3-D halo instance launches the plan of the shards'
+    local block (poisson3d_launch_plan(layout.local)) once per shard:
+    every cell of every block is computed by exactly one thread, so the
+    shards cover the grid once; within the card's grid limits, and with
+    at least POISSON3D_TARGET_BLOCKS blocks per launch where the block
+    has that many tiles and planes."""
+    layout = cs.HaloLayout(make_device_grid(3, ["cpu"], shape=shape), N, (True, False, True))
+    plan = cs.poisson3d_launch_plan(layout.local, dtype)
+    c0, c1, c2 = march3d_cover(plan, layout.local)
+    counts = [np.zeros(n, int) for n in N]
+    for k in layout.grid.shards():
+        for a, c in enumerate((c0, c1, c2)):
+            if all(x == 0 for b, x in enumerate(k) if b != a):
+                s = layout.start(k)[a]
+                counts[a][s:s + layout.local[a]] += c
+    assert all(np.all(c == 1) for c in counts)
+    if np.prod(layout.local) <= 8 * 8 * 128:
+        assert np.all(march3d_cells(plan, layout.local) == 1)
+    gx, gy, gz = plan.grid
+    assert gy <= 65535 and gz <= 65535
+    assert gx * gy * gz >= min(cs.POISSON3D_TARGET_BLOCKS, layout.local[0] * gx * gy)
+    assert plan.smem == 4 * dtype.itemsize * plan.run
+
+
+def test_poisson3d_halo_launch_plan_refuses_what_cannot_fit():
+    layout = cs.HaloLayout(make_device_grid(3, ["cpu"], shape=(2, 1, 1)),
+                           (2 * (65536 * 8 + 1), 1, 1), (False,) * 3)
+    with pytest.raises(ValueError, match="does not fit"):
+        cs.poisson3d_launch_plan(layout.local, torch.float32)

@@ -1,17 +1,18 @@
 """The cells a launch plan covers, by the index maps the CUDA kernels
-use (csrc/momentum3d.cu momentum3d_kernel, csrc/probes.cu
-copy_scale_kernel), computed on the CPU: per axis, how many threads
-write each index. The maps are products of per-axis maps, so a plan
-covers every cell exactly once where every axis' counts are all 1."""
+use (csrc/momentum3d.cu momentum3d_kernel, csrc/poisson3d.cu
+poisson3d_kernel, csrc/chain3d.cu chain3d_kernel over its face box,
+csrc/probes.cu copy_scale_kernel), computed on the CPU: per axis, how
+many threads write each index. The maps are products of per-axis maps, so
+a plan covers every cell exactly once where every axis' counts are all 1."""
 
 import numpy as np
 
 
-def momentum3d_cover(plan, shape):
-    """(counts along axis 0, 1, 2) of a ``Momentum3DPlan`` on a block of
-    ``shape`` cells: block z takes planes z*run .. z*run + run - 1 below
-    N0; thread row y of block y' the row y'*rows + y; lane x of block x'
-    the cell x'*32 + x below N2."""
+def march3d_cover(plan, shape):
+    """(counts along axis 0, 1, 2) of a ``MarchPlan`` on a box of ``shape``
+    indices: block z takes planes z*run .. z*run + run - 1 below N0; thread
+    row y of block y' the row y'*rows + y; lane x of block x' the index
+    x'*32 + x below N2."""
     gx, gy, gz = plan.grid
     n0, n1, n2 = shape
     c0 = np.zeros(n0, int)
@@ -22,8 +23,8 @@ def momentum3d_cover(plan, shape):
     return c0, np.bincount(j[j < n1], minlength=n1), np.bincount(k[k < n2], minlength=n2)
 
 
-def momentum3d_cells(plan, shape):
-    """The count of every cell, thread by thread (small shapes only)."""
+def march3d_cells(plan, shape):
+    """The count of every index, thread by thread (small shapes only)."""
     gx, gy, gz = plan.grid
     counts = np.zeros(shape, int)
     for z, y, x in np.ndindex(gz, gy, gx):
