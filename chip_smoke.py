@@ -28,7 +28,8 @@ Phases:
      before it runs;
   4. time: device time (CUDA graph) and eager time of each kernel and its
      plain version, with its bound, float32 and bf16: 2-D at 256^2 and
-     4096^2, 3-D at 128^3; the chain's stages also beside the unfused
+     4096^2 (the 4096^2 times and launch plans also in the kernels line),
+     3-D at 128^3; the chain's stages also beside the unfused
      sequence of banded operators they replace (and at 512x256x256 in 8);
      the momentum 3-D halo instance on a (2, 2, 2) grid of the 128^3
      channel (held against its plain version and the unsharded kernel
@@ -93,10 +94,10 @@ Phases:
      also against torch.mul on the same buffer in turns (torch.mul,
      copy_scale, copy_scale, torch.mul) at every shape of the path;
  12. resources: the registers, spills, stack and static shared memory of
-     the momentum 3-D, Poisson 3-D, chain and copy kernels, from a
-     separate nvcc -Xptxas -v compile of their sources run beside the
-     build and finished before the first check (the build's own flags
-     unchanged);
+     the Poisson and momentum kernels (2-D and 3-D, their bf16 and halo
+     instances), the chain and the copy kernels, from a separate nvcc
+     -Xptxas -v compile of their sources run beside the build and
+     finished before the first check (the build's own flags unchanged);
  13. ledger: every kernel wrapper records the (shape, instance, band set)
      keys it launched at, and each check the key it covered; the script
      fails if any launched key went unchecked.
@@ -118,6 +119,7 @@ import re
 import subprocess
 import sys
 import time
+from dataclasses import asdict
 
 import numpy as np
 import torch
@@ -401,8 +403,27 @@ def phase_build():
 # The sources whose kernels' registers, spills and shared memory the run
 # reports, each compiled once more with -Xptxas -v (the production build's
 # flags are not changed); and the kernels of each, by their mangled names.
-RESOURCE_SOURCES = ("momentum3d.cu", "poisson3d.cu", "chain3d.cu", "probes.cu")
+RESOURCE_SOURCES = ("poisson2d.cu", "momentum2d.cu", "momentum3d.cu", "poisson3d.cu",
+                    "chain3d.cu", "probes.cu")
+# poisson2d_kernel<T, MODE, HALO, VEC, ONE> (ONE false: runs of more than
+# one row) and momentum2d_kernel<T, HALO, VEC> at the cells per lane their
+# plans take at 4096^2
+_P2, _M2 = cuda_stencil.POISSON2D_VEC, cuda_stencil.MOMENTUM2D_VEC
 RESOURCE_KERNELS = {
+    "poisson2d": rf"poisson2d_kernelIfLi0ELb0ELi{_P2[torch.float32]}ELb0E",
+    "poisson2d residual": rf"poisson2d_kernelIfLi1ELb0ELi{_P2[torch.float32]}ELb0E",
+    "poisson2d smooth": rf"poisson2d_kernelIfLi2ELb0ELi{_P2[torch.float32]}ELb0E",
+    "poisson2d_bf16": rf"poisson2d_kernelI13__nv_bfloat16Li0ELb0ELi{_P2[torch.bfloat16]}ELb0E",
+    "poisson2d_bf16 smooth": rf"poisson2d_kernelI13__nv_bfloat16Li2ELb0ELi{_P2[torch.bfloat16]}ELb0E",
+    "poisson2d (f64)": rf"poisson2d_kernelIdLi0ELb0ELi{_P2[torch.float64]}ELb0E",
+    "poisson2d_halo": rf"poisson2d_kernelIfLi0ELb1ELi{_P2[torch.float32]}ELb0E",
+    "poisson2d_halo smooth": rf"poisson2d_kernelIfLi2ELb1ELi{_P2[torch.float32]}ELb0E",
+    "poisson2d_halo (f64)": rf"poisson2d_kernelIdLi0ELb1ELi{_P2[torch.float64]}ELb0E",
+    "momentum2d": rf"momentum2d_kernelIfLb0ELi{_M2[torch.float32]}E",
+    "momentum2d_bf16": rf"momentum2d_kernelI13__nv_bfloat16Lb0ELi{_M2[torch.bfloat16]}E",
+    "momentum2d (f64)": rf"momentum2d_kernelIdLb0ELi{_M2[torch.float64]}E",
+    "momentum2d_halo": rf"momentum2d_kernelIfLb1ELi{_M2[torch.float32]}E",
+    "momentum2d_halo (f64)": rf"momentum2d_kernelIdLb1ELi{_M2[torch.float64]}E",
     "momentum3d": r"momentum3d_kernelIfLb0E", "momentum3d_bf16": r"momentum3d_kernelI13__nv_bfloat16Lb0E",
     "momentum3d (f64)": r"momentum3d_kernelIdLb0E", "momentum3d_halo": r"momentum3d_kernelIfLb1E",
     "momentum3d_halo (f64)": r"momentum3d_kernelIdLb1E",
@@ -605,7 +626,8 @@ def time_one(label, kernel, plain, nbytes_moved, flops, calls=50, replays=20,
 def time_kernels(entries):
     """The 2-D kernels, float32 and bf16: Poisson at 256^2 and 4096^2,
     momentum on real cavity planes at 256^2 and random planes at 4096^2.
-    The 256^2 apply and momentum times go to ``entries``."""
+    The 256^2 apply and momentum times go to ``entries``, the 4096^2 ones
+    (every Poisson mode) with their launch plans to its ``at_4096``."""
     rng = np.random.default_rng(2)
     gen = torch.Generator(device="cuda").manual_seed(2)
     (name, ops, W), _ = momentum_cases(torch.float32)
@@ -635,6 +657,10 @@ def time_kernels(entries):
                     N * N * FLOPS_PER_CELL["poisson2d"][mode])
                 if N == 256 and mode == "apply":
                     entries["poisson2d" + sfx].update(t)
+                if N == 4096:
+                    large = entries["poisson2d" + sfx].setdefault("at_4096", {"plan": asdict(
+                        cuda_stencil.poisson2d_launch_plan((N, N), dtype))})
+                    large[mode] = t
         for N, planes, reps in ((256, W.to(dtype), {}),
                                 (4096, None, {"calls": 5, "replays": 4, "iters": 10})):
             kind = "random" if planes is None else name
@@ -654,6 +680,9 @@ def time_kernels(entries):
                 **reps)
             if N == 256:
                 entries["momentum2d" + sfx].update(t)
+            else:
+                entries["momentum2d" + sfx]["at_4096"] = {
+                    "plan": asdict(cuda_stencil.momentum2d_launch_plan((N, N), dtype)), **t}
             del planes
 
 
@@ -2579,7 +2608,7 @@ def main(argv=None) -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "unfused_ms", "unfused_launches", "kernels_ms", "unsharded_ms",
             "max_abs_vs_unsharded", "also_replaces", "max_abs_vs_poisson3d", "registers",
-            "spill_bytes")
+            "spill_bytes", "at_4096")
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                   for e in entries.values()]}))
     print(smi)

@@ -93,23 +93,6 @@ struct Args {
     int run;                           // planes per block
 };
 
-// The 4 staged values of a plane: A0[-1], A0[0], A0[+1], H0.
-__device__ __forceinline__ void plane_coeffs(const float* s, float (&a)[4]) {
-    const float4 x = *reinterpret_cast<const float4*>(s);
-    a[0] = x.x;
-    a[1] = x.y;
-    a[2] = x.z;
-    a[3] = x.w;
-}
-__device__ __forceinline__ void plane_coeffs(const double* s, double (&a)[4]) {
-    const double2 x = *reinterpret_cast<const double2*>(s);
-    const double2 y = *reinterpret_cast<const double2*>(s + 2);
-    a[0] = x.x;
-    a[1] = x.y;
-    a[2] = y.x;
-    a[3] = y.y;
-}
-
 // One thread: the cell (j, k) of each plane of its block's run. HALO
 // false compiles the edge-plane reads out.
 template <typename T, int MODE, bool HALO>
@@ -176,7 +159,7 @@ poisson3d_kernel(const Args<T> h) {
         const C bb = MODE >= 1 ? F::load(h.b + pl + ctr) : C(0);
         const C ww = MODE == 2 ? F::load(h.w + pl + ctr) : C(0);
         C a[4];
-        plane_coeffs(s0 + 4 * ii, a);
+        fluca::plane_coeffs(s0 + 4 * ii, a);  // A0[-1], A0[0], A0[+1], H0
 
         const C sa = fluca::poisson3d_axis(a[0], a[1], a[2], pm, pc, pp);
         const C sb = fluca::poisson3d_axis(c1m, c1c, c1p, nb[0], pc, nb[1]);

@@ -5,24 +5,29 @@
 // wraps around the whole (global) axis.
 //
 // Who uses what:
-// - Field<T>::load/store, acc_t: every kernel;
-// - load2d/load3d (the wrap or zero decided per load by in_axis):
-//   poisson2d.cu, momentum2d.cu and probes.cu's poisson3d_variant;
+// - Field<T>::load/store/up/down, acc_t: every kernel;
+// - Pack<T, VEC> (VEC cells read or written as one access) and Lane2D /
+//   Rows2D (the lanes, columns and rows of a 2-D march): poisson2d.cu and
+//   momentum2d.cu;
+// - load3d (the wrap or zero decided per load by in_axis): probes.cu's
+//   poisson3d_variant, which keeps the first poisson3d design on purpose;
 // - poisson3d_axis/poisson3d_sp: poisson3d.cu and probes.cu;
-// - kBlockX/kBlockY, grid2d/grid3d: poisson2d.cu, momentum2d.cu and
-//   probes.cu's poisson3d_variant;
-// - HaloGeom, HaloField, halo_load, halo_offset: the *_halo kernels,
-//   and momentum3d.cu's +-2 reads (wall rows only);
+// - plane_coeffs (4 staged values of a row or plane): poisson2d.cu and
+//   poisson3d.cu;
+// - kBlockX/kBlockY, grid3d: probes.cu's poisson3d_variant;
+// - HaloGeom, HaloField: the *_halo kernels; halo_load: momentum3d.cu's
+//   +-2 reads (wall rows only);
 // - Where/Nb/resolve (an in-plane neighbour's wrap, zero or edge plane
 //   resolved once per thread, not per load as load3d does): momentum3d.cu
 //   and poisson3d.cu;
-// - mad (a fused multiply-add whatever the context): momentum3d.cu,
-//   poisson3d.cu (through poisson3d_axis/_sp), probes.cu and chain3d.cu.
+// - mad (a fused multiply-add whatever the context): every kernel but
+//   probes.cu's copies.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <string.h>
 
 namespace fluca {
 
@@ -39,6 +44,8 @@ struct Field {
         return __ldg(x);
     }
     static __device__ __forceinline__ void store(T* x, T v) { *x = v; }
+    static __device__ __forceinline__ T up(T x) { return x; }
+    static __device__ __forceinline__ T down(T x) { return x; }
 };
 
 template <>
@@ -51,6 +58,12 @@ struct Field<__nv_bfloat16> {
     }
     static __device__ __forceinline__ void store(__nv_bfloat16* x, float v) {
         *x = __float2bfloat16_rn(v);
+    }
+    static __device__ __forceinline__ float up(__nv_bfloat16 x) {
+        return __bfloat162float(x);
+    }
+    static __device__ __forceinline__ __nv_bfloat16 down(float x) {
+        return __float2bfloat16_rn(x);
     }
 };
 
@@ -80,15 +93,7 @@ __device__ __forceinline__ bool in_axis(int& k, int n, int per) {
     return true;
 }
 
-// Neighbour reads of a field, in the type the kernel computes in.
-template <typename T>
-__device__ __forceinline__ acc_t<T> load2d(const T* __restrict__ x, int i,
-                                           int j, int N0, int N1, int per0,
-                                           int per1) {
-    if (!in_axis(i, N0, per0) || !in_axis(j, N1, per1)) return acc_t<T>(0);
-    return Field<T>::load(x + (size_t)i * N1 + j);
-}
-
+// A neighbour read of a field, in the type the kernel computes in.
 template <typename T>
 __device__ __forceinline__ acc_t<T> load3d(const T* __restrict__ x, int i,
                                            int j, int k, int N0, int N1,
@@ -119,17 +124,13 @@ __device__ __forceinline__ C poisson3d_sp(C s0, C s1, C s2, C h0, C hj, C hk) {
     return mad(hj * hk, s0, h0 * mad(hj, s2, hk * s1));
 }
 
-// One thread per cell, the contiguous axis along threadIdx.x so a
-// warp reads 32 neighbouring addresses. In 3-D the block covers a
-// kBlockY x kBlockX patch of one (j, k) plane and blockIdx.z is the
-// plane index i.
+// The first 3-D design's geometry, kept by probes.cu's poisson3d_variant:
+// one thread per cell, the contiguous axis along threadIdx.x so a warp
+// reads 32 neighbouring addresses; the block covers a kBlockY x kBlockX
+// patch of one (j, k) plane and blockIdx.z is the plane index i.
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kMaxGridYZ = 65535;
-
-inline dim3 grid2d(int N0, int N1) {
-    return dim3((N1 + kBlockX - 1) / kBlockX, (N0 + kBlockY - 1) / kBlockY);
-}
 
 inline dim3 grid3d(int N0, int N1, int N2) {
     return dim3((N2 + kBlockX - 1) / kBlockX, (N1 + kBlockY - 1) / kBlockY,
@@ -221,15 +222,6 @@ __device__ __forceinline__ acc_t<T> halo_load(const HaloField<T, D>& f,
     return Field<T>::load(f.x + o);
 }
 
-template <int D>
-__device__ __forceinline__ long long halo_offset(const HaloGeom<D>& g,
-                                                 const int (&pos)[D]) {
-    long long o = 0;
-#pragma unroll
-    for (int b = 0; b < D; ++b) o += pos[b] * g.st[b];
-    return o;
-}
-
 // Where an in-plane read lands, resolved once per thread: in the block
 // (off: its offset in the plane), zero (off: the thread's own cell, a
 // valid address whose value is then dropped), or on the lo/hi edge
@@ -257,5 +249,155 @@ __device__ __forceinline__ Nb resolve(const HaloGeom<3>& g, int j, int k, int q)
     }
     return AX == 1 ? Nb{kIn, q * g.st[1] + k} : Nb{kIn, j * g.st[1] + q};
 }
+
+// ---------------------------------------------------------------------
+// Marching kernels: a block walks `run` rows (2-D) or planes (3-D) along
+// axis 0 and stages axis 0's coefficients per row in shared memory.
+
+// The 4 staged values of a row or plane: one 16-byte shared-memory read
+// for float, two for double.
+__device__ __forceinline__ void plane_coeffs(const float* s, float (&a)[4]) {
+    const float4 x = *reinterpret_cast<const float4*>(s);
+    a[0] = x.x;
+    a[1] = x.y;
+    a[2] = x.z;
+    a[3] = x.w;
+}
+__device__ __forceinline__ void plane_coeffs(const double* s, double (&a)[4]) {
+    const double2 x = *reinterpret_cast<const double2*>(s);
+    const double2 y = *reinterpret_cast<const double2*>(s + 2);
+    a[0] = x.x;
+    a[1] = x.y;
+    a[2] = y.x;
+    a[3] = y.y;
+}
+
+template <int BYTES>
+struct RawOf;
+template <>
+struct RawOf<2> {
+    using type = unsigned short;
+};
+template <>
+struct RawOf<4> {
+    using type = unsigned int;
+};
+template <>
+struct RawOf<8> {
+    using type = uint2;
+};
+template <>
+struct RawOf<16> {
+    using type = uint4;
+};
+
+// VEC consecutive cells of a row, read or written as one access of
+// VEC * sizeof(T) bytes (2 to 16; the address aligned to it), in the type
+// the kernel computes in.
+template <typename T, int VEC>
+struct Pack {
+    using C = acc_t<T>;
+    using Raw = typename RawOf<sizeof(T) * VEC>::type;
+    C v[VEC];
+
+    static __device__ __forceinline__ Pack load(const T* x) {
+        const Raw r = __ldg(reinterpret_cast<const Raw*>(x));
+        T t[VEC];
+        memcpy(t, &r, sizeof r);
+        Pack out;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) out.v[k] = Field<T>::up(t[k]);
+        return out;
+    }
+    __device__ __forceinline__ void store(T* x) const {
+        T t[VEC];
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) t[k] = Field<T>::down(v[k]);
+        Raw r;
+        memcpy(&r, t, sizeof r);
+        *reinterpret_cast<Raw*>(x) = r;
+    }
+    // every cell 0 where z
+    __device__ __forceinline__ void zero_if(bool z) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) v[k] = z ? C(0) : v[k];
+    }
+};
+
+// One lane of a 2-D march (poisson2d.cu, momentum2d.cu), whose stencil
+// reaches H columns to each side. Warp w (blockIdx.x * blockDim.y +
+// threadIdx.y) owns the kCols columns from c0 = w * kCols; lane t holds VEC
+// cells of a row from column js = c0 + (t - kEnd) * VEC. The kEnd lanes
+// at each end of the warp hold the columns up to H past the warp's own,
+// which the other lanes take with shuffles; they compute nothing. Where a
+// lane's field reads start is resolved once: in the block, wrapped on a
+// periodic axis 1, or past a wall or halo axis 1, where its cells read 0
+// but for the one at local column -1 or n1 of a halo axis, which reads the
+// lo or hi edge column. n1 is a multiple of VEC.
+template <int VEC, int H>
+struct Lane2D {
+    static constexpr int kEnd = (H + VEC - 1) / VEC;  // lanes at each end
+    static constexpr int kCols = (32 - 2 * kEnd) * VEC;
+    int c0;        // the warp's first column
+    int js;        // the lane's first column (may lie outside the block)
+    bool compute;  // the lane computes and stores its cells
+    int col;       // the column its field reads start at (in the block)
+    int own;       // the column its other reads start at: js where it
+                   // computes, else a computing lane's (the same lines)
+    bool zero;     // its field cells read 0
+    int edge;      // its cell that reads an edge column (-1: none)
+    bool hi;       // that edge column is the hi one
+
+    __device__ __forceinline__ Lane2D(const HaloGeom<2>& g, int warp, int lane) {
+        const int n1 = g.n[1];
+        c0 = warp * kCols;
+        js = c0 + (lane - kEnd) * VEC;
+        compute = lane >= kEnd && lane < 32 - kEnd && js < n1;
+        own = min(max(js, c0), min(c0 + kCols, n1) - VEC);
+        col = js;
+        zero = false;
+        edge = -1;
+        hi = false;
+        if (js < 0 || js >= n1) {
+            if (g.mode[1] == kPeriodic) {
+                col = wrap_index(js, n1);
+            } else {
+                col = own;
+                zero = true;
+                if (g.mode[1] == kHalo && js < 0 && js + VEC > -1) edge = -1 - js;
+                if (g.mode[1] == kHalo && js == n1) {
+                    edge = 0;
+                    hi = true;
+                }
+            }
+        }
+    }
+};
+
+// The rows of a field in a 2-D march along axis 0: row q (a few past
+// either end at most) of a lane's column: in the block, wrapped on a
+// periodic axis 0, on the lo or hi edge row of a halo axis 0 (q = -1 or
+// n0; est: the edge rows' element stride along axis 1), or zero. Selects,
+// not branches, so that a row's loads go out together.
+template <typename T, bool HALO>
+struct Rows2D {
+    const T* x;
+    const T* lo;
+    const T* hi;
+    long long st0, est;
+    int n0, mode0;
+
+    __device__ __forceinline__ const T* at(int q, int col, bool& zero) const {
+        const bool in = q >= 0 && q < n0;
+        const bool per = mode0 == kPeriodic;
+        int qq = q < 0 ? q + n0 : q - n0;
+        qq = in ? q : !per ? 0 : qq < 0 ? qq + n0 : qq >= n0 ? qq - n0 : qq;
+        const T* ptr = x + qq * st0 + col;
+        const bool edge = HALO && mode0 == kHalo && (q == -1 || q == n0);
+        if (edge) ptr = (q < 0 ? lo : hi) + col * est;
+        zero = !in && !per && !edge;
+        return ptr;
+    }
+};
 
 }  // namespace fluca

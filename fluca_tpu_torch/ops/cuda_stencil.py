@@ -160,6 +160,9 @@ def load_library() -> ctypes.CDLL:
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
+_PP, _PL = ctypes.POINTER(_VP), ctypes.POINTER(ctypes.c_longlong)
+# the pointer arrays of the 2-D kernels' entry points
+_PTRS8, _PTRS5 = _VP * 8, _VP * 5
 # the C interface of the momentum 3-D kernel and the chain stages: an
 # array of device pointers, the three extents, the three periodicity
 # flags, the launch plan and the stream
@@ -356,7 +359,7 @@ def poisson2d_coeffs(mesh, host_dgst, host_vol):
 class Poisson2DCoeffs:
     """Device copies of the ``poisson2d_coeffs`` arrays for one grid
     level, with the level's periodicity, in a coefficient dtype (float32
-    or float64)."""
+    or float64); checked once when built."""
 
     rx: torch.Tensor  # (3, N0)
     ry: torch.Tensor  # (N0,)
@@ -364,15 +367,21 @@ class Poisson2DCoeffs:
     cyb: torch.Tensor  # (3, N1)
     periodic: tuple[bool, bool]
 
+    def __post_init__(self):
+        if self.ry.dim() != 1 or self.cy.dim() != 1 \
+                or self.rx.shape != (3, self.ry.shape[0]) \
+                or self.cyb.shape != (3, self.cy.shape[0]):
+            raise ValueError(f"poisson2d coefficients: rx {tuple(self.rx.shape)}, ry "
+                             f"{tuple(self.ry.shape)}, cy {tuple(self.cy.shape)}, cyb "
+                             f"{tuple(self.cyb.shape)}")
+        _check_coeff_dtype("poisson2d coefficients", self.rx)
+        _check_tensors("poisson2d coefficients", self.rx, {
+            "rx": self.rx, "ry": self.ry, "cy": self.cy, "cyb": self.cyb})
+
     @classmethod
     def from_host(cls, arrays, periodic, dtype, device):
-        rx, ry, cy, cyb = (
-            torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                            device=device)
-            for a in arrays
-        )
-        _check_coeff_dtype("poisson2d coefficients", rx)
-        return cls(rx, ry, cy, cyb, (bool(periodic[0]), bool(periodic[1])))
+        return cls(*(torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+                     for a in arrays), (bool(periodic[0]), bool(periodic[1])))
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -428,32 +437,29 @@ class Poisson2DKernel(_Kernel):
     """Wrapper of the Poisson 2-D kernel (csrc/poisson2d.cu)."""
 
     name = "poisson2d"
-    argtypes = [_CI, *[_VP] * 8, _CI, _CI, _CI, _CI, ctypes.c_double, _VP]
+    argtypes = [_CI, _PP, _CI, _CI, _CI, _CI, ctypes.c_double, ctypes.POINTER(_CI), _VP]
 
     def __call__(self, mode, p, c: Poisson2DCoeffs, b=None, w=None,
                  omega=0.0):
         fields = _poisson_fields(self.name, mode, p, b, w, 2)
         N0, N1 = p.shape
-        if c.shape != (N0, N1) or c.rx.shape != (3, N0) \
-                or c.cyb.shape != (3, N1):
+        if c.shape != (N0, N1):
             raise ValueError(f"{self.name}: coefficients for {c.shape}, "
                              f"field {tuple(p.shape)}")
-        _check_tensors(self.name, p, fields,
-                       {"rx": c.rx, "ry": c.ry, "cy": c.cy, "cyb": c.cyb})
+        # the coefficient arrays share rx's dtype and device (checked when
+        # they were built)
+        _check_tensors(self.name, p, fields, {"rx": c.rx})
         if _launch_target(self.name, p) == "cpu":
             return poisson2d_plain(mode, p, c, b, w, omega)
-        if N0 == 0 or N1 == 0 or N0 > _MAX_ROWS:
-            raise ValueError(f"{self.name}: unsupported shape {(N0, N1)}")
         out = torch.empty_like(p)
-        self._launch(
-            p.dtype, ((N0, N1), c.periodic), POISSON_MODES[mode], p.data_ptr(),
-            b.data_ptr() if b is not None else None,
-            w.data_ptr() if w is not None else None,
-            c.rx.data_ptr(), c.ry.data_ptr(), c.cy.data_ptr(),
-            c.cyb.data_ptr(), out.data_ptr(), N0, N1,
-            int(c.periodic[0]), int(c.periodic[1]), float(omega),
-            _stream_ptr(p),
-        )
+        fp = (p.data_ptr(), b if b is None else b.data_ptr(),
+              w if w is None else w.data_ptr(), out.data_ptr())
+        plan = poisson2d_launch_plan((N0, N1), p.dtype, _aligned(fp))
+        self._launch(p.dtype, ((N0, N1), c.periodic), POISSON_MODES[mode],
+                     _PTRS8(*fp[:3], c.rx.data_ptr(), c.ry.data_ptr(), c.cy.data_ptr(),
+                            c.cyb.data_ptr(), fp[3]),
+                     N0, N1, int(c.periodic[0]), int(c.periodic[1]), float(omega),
+                     plan.as_c(), _stream_ptr(p))
         return out
 
 
@@ -504,7 +510,7 @@ class Momentum2DKernel(_Kernel):
     plane stack is in the fields' dtype."""
 
     name = "momentum2d"
-    argtypes = [*[_VP] * 5, _CI, _CI, _CI, _CI, _VP]
+    argtypes = [_PP, _CI, _CI, _CI, _CI, ctypes.POINTER(_CI), _VP]
 
     def __call__(self, W, u, v, periodic):
         if not isinstance(u, torch.Tensor) or u.dim() != 2:
@@ -520,18 +526,160 @@ class Momentum2DKernel(_Kernel):
         per0, per1 = (bool(x) for x in periodic)
         if _launch_target(self.name, u) == "cpu":
             return momentum2d_plain(W, u, v, (per0, per1))
-        if N0 == 0 or N1 == 0 or N0 > _MAX_ROWS:
-            raise ValueError(f"{self.name}: unsupported shape {(N0, N1)}")
         out_u = torch.empty_like(u)
         out_v = torch.empty_like(v)
-        self._launch(u.dtype, ((N0, N1), (per0, per1)), W.data_ptr(),
-                     u.data_ptr(), v.data_ptr(),
-                     out_u.data_ptr(), out_v.data_ptr(), N0, N1,
-                     int(per0), int(per1), _stream_ptr(u))
+        ptrs = (W.data_ptr(), u.data_ptr(), v.data_ptr(), out_u.data_ptr(),
+                out_v.data_ptr())
+        plan = momentum2d_launch_plan((N0, N1), u.dtype, _aligned(ptrs))
+        self._launch(u.dtype, ((N0, N1), (per0, per1)), _PTRS5(*ptrs), N0, N1,
+                     int(per0), int(per1), plan.as_c(), _stream_ptr(u))
         return out_u, out_v
 
 
 momentum2d = Momentum2DKernel()
+
+
+# ----------------------------------------------------------------------
+# The launch plans of the 2-D kernels
+# ----------------------------------------------------------------------
+#
+# csrc/poisson2d.cu and csrc/momentum2d.cu march along axis 0: a block of
+# 32 x ``rows`` threads, one strip of columns per warp, walks ``run`` rows;
+# each lane holds ``vec`` cells of a row, read as one access, and the
+# lanes at each end of a warp hold the ``reach`` columns past its strip
+# (the neighbours the other lanes take with shuffles) and compute nothing
+# (csrc/stencil_common.cuh Lane2D). The host picks the geometry (cached
+# per shape, dtype and alignment) and the C entry points check it against
+# the shape and the addresses: a plan that does not tile the block is
+# refused, never relaunched.
+
+LANES = 32  # the threads of a warp
+
+
+@dataclass(frozen=True)
+class March2DPlan:
+    """One launch of a 2-D marching kernel: the grid (column tiles of
+    ``rows`` strips, runs), the warps of a block (its y extent), the rows
+    of a run, the cells per lane and the dynamic shared memory."""
+
+    grid: tuple[int, int]
+    rows: int
+    run: int
+    vec: int
+    smem: int
+
+    def as_c(self):
+        """The plan as the C entry points take it (6 ints), built once."""
+        return self._c
+
+    @functools.cached_property
+    def _c(self):
+        return (ctypes.c_int * 6)(*self.grid, self.rows, self.run, self.vec, self.smem)
+
+
+def march2d_columns(reach, vec) -> int:
+    """The columns a warp computes: its lanes less ``ceil(reach / vec)``
+    at each end, ``vec`` cells each (Lane2D::kCols)."""
+    return (LANES - 2 * -(-reach // vec)) * vec
+
+
+def _aligned(addresses) -> bool:
+    """Every address among ``addresses`` (None: no tensor) a multiple of
+    16 bytes: the kernels read and write 16 bytes of cells at a time only
+    then."""
+    bits = 0
+    for a in addresses:
+        bits |= a or 0
+    return bits & 15 == 0
+
+
+def _march2d_plan(name, shape, reach, vec, warps, runs, target_blocks,
+                  smem_of_run) -> March2DPlan:
+    """A 2-D march over a block of ``shape`` cells whose stencil reaches
+    ``reach`` columns to each side, with at most ``vec`` cells per lane
+    (fewer where the row length needs it) and ``warps`` warps per block
+    (fewer where a row has fewer strips); ``run`` about n0 * column tiles
+    / ``target_blocks``, kept within ``runs`` and the axis and evened out
+    over the rows, so that shapes with fewer than twice the target's
+    rows and tiles (the coarse levels) take one row per block. Raises
+    where the shape does not fit the CUDA grid."""
+    shape = tuple(int(n) for n in shape)
+    if len(shape) != 2 or min(shape) < 1:
+        raise ValueError(f"{name}: no launch for the shape {shape}")
+    n0, n1 = shape
+    while n1 % vec:
+        vec //= 2
+    strips = -(-n1 // march2d_columns(reach, vec))
+    rows = min(warps, strips)
+    gx = -(-strips // rows)
+    lo, hi = runs
+    run = min(n0, max(lo, min(hi, n0 * gx // target_blocks)))
+    gy = -(-n0 // run)
+    run = -(-n0 // gy)
+    smem = smem_of_run(run)
+    if gy > _MAX_PLANES or gx >= 2**31 or smem > 48 * 1024:
+        raise ValueError(f"{name}: the shape {shape} does not fit the card "
+                         f"(grid {(gx, gy)}, {smem} bytes of shared memory)")
+    return March2DPlan((gx, gy), rows, run, vec, smem)
+
+
+# The launch geometry of csrc/poisson2d.cu: up to POISSON2D_WARPS warps per
+# block, POISSON2D_VEC cells per lane (where the rows and addresses are
+# aligned to them), runs of about n0 * tiles / POISSON2D_TARGET_BLOCKS rows
+# within POISSON2D_RUNS. On the H100 at 4096^2 (examples/kernels2d.py
+# --plans, PERF.md section 6) f32, f64 and bf16 all ran fastest at runs of
+# 4 rows (8: 1-6 % slower) and 16 bytes per lane in f32 and f64, 8 in bf16
+# (4 cells: 16 bytes were within 0-4 %); warps 2-4 within 1 %, and at 256^2
+# 4 warps beat 1 by 18-45 % (fewer, larger blocks: the coarse levels keep
+# them, one row each, even below one block per SM). Where the
+# runs are one row (up to ~512^2: the launch is bound by its latency) half
+# those cells per lane: at 256^2 f32 the residual and smooth ran 6-12 %
+# faster at 2 cells than at 4. A block stages RX's three values and RY per
+# row of its run in shared memory, but for a one-row run, which reads them
+# with its row.
+POISSON2D_WARPS = 4
+POISSON2D_VEC = {torch.float32: 4, torch.float64: 2, torch.bfloat16: 4}
+POISSON2D_RUNS = (1, 4)
+POISSON2D_TARGET_BLOCKS = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def poisson2d_launch_plan(shape, dtype, aligned=True) -> March2DPlan:
+    """The launch of the Poisson 2-D kernel on a block of ``shape`` cells
+    (the grid, or one shard's block) with fields in ``dtype``; one cell
+    per lane unless the fields' addresses are ``aligned`` to 16 bytes:
+    every cell computed by exactly one thread. Raises where the shape
+    does not fit the CUDA grid."""
+    item = coef_dtype(dtype).itemsize
+
+    def plan(vec):
+        return _march2d_plan("poisson2d", shape, 1, vec, POISSON2D_WARPS, POISSON2D_RUNS,
+                             POISSON2D_TARGET_BLOCKS, lambda run: 4 * item * run)
+
+    out = plan(POISSON2D_VEC[dtype] if aligned else 1)
+    # runs of one row (the small levels) are bound by their latency: half
+    # the cells per lane, half the chain of each thread
+    return plan(out.vec // 2) if out.run == 1 and out.vec > 1 else out
+
+
+# The launch geometry of csrc/momentum2d.cu: as the Poisson kernel's, with
+# the +-2 reach (two end lanes per warp at one cell per lane) and no
+# shared memory. On the H100 at 4096^2 runs of one row were the fastest in
+# f32 and bf16 (runs of 4 4-6 % slower, of 32 20-31 %: the 26 plane streams
+# dominate the traffic and the re-read rows of u and v come from L2), one
+# cell per lane in f32, two in f64 (16 bytes) and four in bf16 (8 bytes)
+# (examples/kernels2d.py --plans).
+MOMENTUM2D_WARPS = 4
+MOMENTUM2D_VEC = {torch.float32: 1, torch.float64: 2, torch.bfloat16: 4}
+
+
+@functools.lru_cache(maxsize=None)
+def momentum2d_launch_plan(shape, dtype, aligned=True) -> March2DPlan:
+    """The launch of the momentum 2-D kernel on a block of ``shape``
+    cells with fields in ``dtype``, as ``poisson2d_launch_plan``, one row
+    per block."""
+    return _march2d_plan("momentum2d", shape, 2, MOMENTUM2D_VEC[dtype] if aligned else 1,
+                         MOMENTUM2D_WARPS, (1, 1), 1, lambda run: 0)
 
 
 # ----------------------------------------------------------------------
@@ -1015,7 +1163,6 @@ HALO_MODES = {"wall": 0, "periodic": 1, "halo": 2}
 # local extents below this on a halo axis are refused by the momentum
 # kernels: their +-2 Laplacian rows must not reach past an edge plane
 MIN_MOMENTUM_LOCAL = 3
-_PP, _PL = ctypes.POINTER(_VP), ctypes.POINTER(ctypes.c_longlong)
 
 
 @dataclass(frozen=True)
@@ -1156,29 +1303,62 @@ def _ptr(t, index) -> int:
         i * s for i, s in zip(index, t.stride()))
 
 
-def _edge_ptrs(layout, k, edges) -> list:
-    """Shard ``k``'s lo and hi edge-plane addresses, axis by axis (None
-    off the halo axes)."""
-    start = layout.start(k)
+def _edge_strides(edges) -> tuple:
+    """Each axis' edge-plane strides (None off the halo axes; lo and hi
+    share theirs)."""
+    return tuple(None if e is None else e[0].stride() for e in edges)
+
+
+@functools.lru_cache(maxsize=None)
+def _halo_launch(layout, strides, itemsize, edge_strides, extra=()):
+    """The per-call constants of a halo call over ``layout`` for cell
+    tensors of ``strides`` and ``itemsize`` bytes and edge-plane stacks of
+    ``edge_strides`` (``_edge_strides``): the geometry array of
+    csrc/stencil_common.cuh read_halo_geom (local and global extents, axis
+    modes, the cell strides, each axis' edge-plane strides, then
+    ``extra``); per shard, its box's first index, that index's byte offset
+    in the cell tensors and per axis the byte offset of its edge planes
+    (None off the halo axes); and whether the cell offsets and those of
+    the axis-0 edge planes (which the 2-D kernels read 16 bytes at a time;
+    they read the other axes' planes by the element) are multiples of 16
+    bytes. Cached, so that a call adds one offset per tensor: the
+    host's time per call bounds the sharded path where the kernels are
+    fast. The kernels copy the geometry at launch."""
+    D = len(layout.shape)
+    est = [x for es in edge_strides for x in (es if es is not None else (0,) * D)]
+    vals = [*layout.local, *layout.shape, *(HALO_MODES[m] for m in layout.modes),
+            *strides, *est, *extra]
+    shards = []
+    for k in layout.grid.shards():
+        start = layout.start(k)
+        edges = tuple(None if es is None else itemsize * sum(
+            (k[a] if d == a else i) * st for d, (i, st) in enumerate(zip(start, es)))
+            for a, es in enumerate(edge_strides))
+        shards.append((start, itemsize * sum(i * st for i, st in zip(start, strides)), edges))
+    aligned = _aligned(x for _, cell, edges in shards for x in (cell, edges[0]))
+    return (ctypes.c_longlong * len(vals))(*vals), tuple(shards), aligned
+
+
+def _edge_bases(edges) -> list:
+    """Each axis' (lo, hi) edge-plane addresses (None off the halo axes)."""
+    return [None if e is None else (e[0].data_ptr(), e[1].data_ptr()) for e in edges]
+
+
+def _edge_ptrs(bases, offsets) -> list:
+    """A shard's lo and hi edge-plane addresses, axis by axis, from the
+    stacks' ``_edge_bases`` and its ``_halo_launch`` byte offsets (None off
+    the halo axes)."""
     out = []
-    for a, e in enumerate(edges):
-        if e is None:
-            out += [None, None]
-            continue
-        idx = tuple(k[a] if d == a else i for d, i in enumerate(start))
-        out += [_ptr(e[0], idx), _ptr(e[1], idx)]
+    for base, off in zip(bases, offsets):
+        out += (None, None) if base is None else (base[0] + off, base[1] + off)
     return out
 
 
-def _halo_geom(layout, strides, edges, extra=()):
-    """The geometry array of csrc/stencil_common.cuh read_halo_geom:
-    local and global extents, axis modes, the cell strides, each axis'
-    edge-plane strides; then ``extra``."""
-    D = len(layout.shape)
-    est = [x for e in edges for x in (e[0].stride() if e is not None else (0,) * D)]
-    vals = [*layout.local, *layout.shape, *(HALO_MODES[m] for m in layout.modes),
-            *strides, *est, *extra]
-    return (ctypes.c_longlong * len(vals))(*vals)
+def _rows_aligned(addresses, edges) -> bool:
+    """A 2-D halo call's blocks and axis-0 edge rows (``addresses``) read
+    16 bytes of cells at a time: every address aligned, and the edge rows
+    contiguous along axis 1."""
+    return _aligned(addresses) and (edges[0] is None or edges[0][0].stride(1) == 1)
 
 
 def _col_ptr(t, start) -> int:
@@ -1200,10 +1380,26 @@ def poisson3d_halo_plain(mode, p, c: Poisson3DCoeffs, layout, edges, b=None, w=N
     return _poisson3d(mode, p, c, b, w, omega, _halo_shift(p, layout, edges))
 
 
+@dataclass(frozen=True)
+class PoissonHaloCall:
+    """What a Poisson halo call needs of its mode, coefficients, layout
+    and omega, checked against each other once
+    (``_PoissonHaloKernel.prepare``): with each shard's coefficient
+    addresses, at its first index."""
+
+    mode: str
+    c: object  # Poisson2DCoeffs or Poisson3DCoeffs
+    layout: HaloLayout
+    omega: float
+    coeff_ptrs: tuple
+
+
 class _PoissonHaloKernel(_Kernel):
     """Wrapper of a Poisson halo instance: (mode, p, coefficients,
     layout, p's edges[, b][, w][, omega]) -> the global Sp | b - Sp |
-    smoothed p, one launch per shard."""
+    smoothed p, one launch per shard. A caller that makes many calls on
+    one level ``prepare``s them once and ``run``s each: the host's time
+    per call bounds the sharded path where the kernels are fast."""
 
     instances = ("f32", "f64")
 
@@ -1212,50 +1408,64 @@ class _PoissonHaloKernel(_Kernel):
         self.name = f"{unsharded.name}_halo"
         self._unsharded = unsharded
         self._plain = plain
-        # the 3-D instance takes the launch plan of the local block
-        self.argtypes = [_CI, _PP, _PL, ctypes.c_double,
-                         *([ctypes.POINTER(_CI)] if ndim == 3 else []), _VP]
+        self.argtypes = [_CI, _PP, _PL, ctypes.c_double, ctypes.POINTER(_CI), _VP]
+        # p b w, the coefficient arrays, out, and the lo and hi edge planes
+        # of each axis
+        self._ptrs = _VP * (4 + (4 if ndim == 2 else 6) + 2 * ndim)
         super().__init__()
 
     @property
     def source(self) -> str:
         return self._unsharded.source
 
-    def _coeff_ptrs(self, c, start):
-        if self.ndim == 2:
-            return [_col_ptr(c.rx, start[0]), _col_ptr(c.ry, start[0]),
-                    _col_ptr(c.cy, start[1]), _col_ptr(c.cyb, start[1])]
-        return [_col_ptr(t, start[d]) for t, d in ((c.a0, 0), (c.c1, 1), (c.c2, 2),
-                                                   (c.h0, 0), (c.h1, 1), (c.h2, 2))]
-
-    def __call__(self, mode, p, c, layout: HaloLayout, edges, b=None, w=None,
-                 omega=0.0):
-        fields = _poisson_fields(self.name, mode, p, b, w, self.ndim)
+    def prepare(self, mode, c, layout: HaloLayout, omega=0.0) -> PoissonHaloCall:
+        """The calls in ``mode`` on the coefficients ``c`` under ``layout``."""
+        if mode not in POISSON_MODES:
+            raise ValueError(f"{self.name}: unknown mode {mode!r}")
         if c.shape != layout.shape or c.periodic != layout.periodic:
             raise ValueError(f"{self.name}: coefficients for {c.shape} periodic "
                              f"{c.periodic}, layout {layout.shape} periodic "
                              f"{layout.periodic}")
-        _check_tensors(self.name, p, fields, {k: t for k, t in vars(c).items()
-                                              if torch.is_tensor(t)})
+        # the coefficient arrays in the C entry point's order, each with the
+        # axis along which a shard's pointer moves to its first index
+        arrays = (((c.rx, 0), (c.ry, 0), (c.cy, 1), (c.cyb, 1)) if self.ndim == 2 else
+                  ((c.a0, 0), (c.c1, 1), (c.c2, 2), (c.h0, 0), (c.h1, 1), (c.h2, 2)))
+        ptrs = tuple(tuple(_col_ptr(t, start[d]) for t, d in arrays)
+                     for start in map(layout.start, layout.grid.shards()))
+        return PoissonHaloCall(mode, c, layout, float(omega), ptrs)
+
+    def __call__(self, mode, p, c, layout: HaloLayout, edges, b=None, w=None,
+                 omega=0.0):
+        return self.run(self.prepare(mode, c, layout, omega), p, edges, b, w)
+
+    def run(self, call: PoissonHaloCall, p, edges, b=None, w=None):
+        """The ``prepare``d call on p with its edge planes ``edges``."""
+        c, layout = call.c, call.layout
+        fields = _poisson_fields(self.name, call.mode, p, b, w, self.ndim)
+        # the coefficient arrays share the first's dtype and device (checked
+        # when they were built)
+        _check_tensors(self.name, p, fields, {"coefficients": c.rx if self.ndim == 2 else c.a0})
         _check_halo_call(self.name, layout, p, {"p": (p, edges)})
         if _launch_target(self.name, p) == "cpu":
-            return self._plain(mode, p, c, layout, edges, b, w, omega)
-        if self.ndim == 3:
-            plan = (poisson3d_launch_plan(layout.local, p.dtype).as_c(),)
-        elif 0 in layout.local or layout.local[0] > _MAX_ROWS:
-            raise ValueError(f"{self.name}: unsupported local shape {layout.local}")
-        else:
-            plan = ()
+            return self._plain(call.mode, p, c, layout, edges, b, w, call.omega)
         out = torch.empty_like(p)
-        geom = _halo_geom(layout, p.stride(), edges)
-        stream = _stream_ptr(p)
-        for k in layout.grid.shards():
-            start = layout.start(k)
-            ptrs = [_ptr(p, start), b if b is None else _ptr(b, start),
-                    w if w is None else _ptr(w, start), *self._coeff_ptrs(c, start),
-                    _ptr(out, start), *_edge_ptrs(layout, k, edges)]
-            self._launch(p.dtype, layout.key, POISSON_MODES[mode],
-                         (_VP * len(ptrs))(*ptrs), geom, float(omega), *plan, stream)
+        geom, shards, offsets_aligned = _halo_launch(layout, p.stride(), p.element_size(),
+                                                     _edge_strides(edges))
+        cells = (p.data_ptr(), None if b is None else b.data_ptr(),
+                 None if w is None else w.data_ptr(), out.data_ptr())
+        ebases = _edge_bases(edges)
+        if self.ndim == 3:
+            plan = poisson3d_launch_plan(layout.local, p.dtype)
+        else:
+            # p, b, w, out and the edge rows of axis 0, read 16 bytes at a time
+            plan = poisson2d_launch_plan(layout.local, p.dtype, offsets_aligned and _rows_aligned(
+                (*cells, *(ebases[0] or ())), edges))
+        plan, key, stream = plan.as_c(), layout.key, _stream_ptr(p)
+        for (_, cell, eoffs), cptrs in zip(shards, call.coeff_ptrs):
+            ptrs = self._ptrs(*(x if x is None else x + cell for x in cells[:3]), *cptrs,
+                              cells[3] + cell, *_edge_ptrs(ebases, eoffs))
+            self._launch(p.dtype, key, POISSON_MODES[call.mode], ptrs, geom, call.omega, plan,
+                         stream)
         return out
 
 
@@ -1283,7 +1493,7 @@ class Momentum2DHaloKernel(_Kernel):
     name = "momentum2d_halo"
     source = "momentum2d.cu"
     instances = ("f32", "f64")
-    argtypes = [_PP, _PL, _VP]
+    argtypes = [_PP, _PL, ctypes.POINTER(_CI), _VP]
 
     def __call__(self, W, u, v, layout: HaloLayout, u_edges, v_edges):
         if not isinstance(u, torch.Tensor) or u.dim() != 2 \
@@ -1298,16 +1508,18 @@ class Momentum2DHaloKernel(_Kernel):
         check_momentum_local(self.name, layout)
         if _launch_target(self.name, u) == "cpu":
             return momentum2d_halo_plain(W, u, v, layout, u_edges, v_edges)
-        if layout.local[0] > _MAX_ROWS:
-            raise ValueError(f"{self.name}: unsupported local shape {layout.local}")
         out = (torch.empty_like(u), torch.empty_like(v))
-        geom = _halo_geom(layout, u.stride(), u_edges)
-        stream = _stream_ptr(u)
-        for k in layout.grid.shards():
-            start = layout.start(k)
-            ptrs = [_ptr(W, (0, *start)), *(_ptr(x, start) for x in (u, v, *out)),
-                    *_edge_ptrs(layout, k, u_edges), *_edge_ptrs(layout, k, v_edges)]
-            self._launch(u.dtype, layout.key, (_VP * len(ptrs))(*ptrs), geom, stream)
+        geom, shards, offsets_aligned = _halo_launch(layout, u.stride(), u.element_size(),
+                                                     _edge_strides(u_edges))
+        # W's rows are u's, its block at u's offset
+        cells = [t.data_ptr() for t in (W, u, v, *out)]
+        ue, ve = _edge_bases(u_edges), _edge_bases(v_edges)
+        plan = momentum2d_launch_plan(layout.local, u.dtype, offsets_aligned and _rows_aligned(
+            (*cells, *(ue[0] or ()), *(ve[0] or ())), u_edges)).as_c()
+        key, stream = layout.key, _stream_ptr(u)
+        for _, cell, eoffs in shards:
+            ptrs = (*(x + cell for x in cells), *_edge_ptrs(ue, eoffs), *_edge_ptrs(ve, eoffs))
+            self._launch(u.dtype, key, (_VP * len(ptrs))(*ptrs), geom, plan, stream)
         return out
 
 
@@ -1393,14 +1605,15 @@ class Momentum3DHaloKernel(_Kernel):
         fst = [x for a in range(3) for x in f.U0[a].stride()]
         fest = [x for a in range(3)
                 for x in (face_hi[a][0].stride() if face_hi[a] is not None else (0,) * 3)]
-        geom = _halo_geom(layout, v[0].stride(), v_edges[0], (*fst, *fest))
+        geom, shards, _ = _halo_launch(layout, v[0].stride(), v[0].element_size(),
+                                       _edge_strides(v_edges[0]), (*fst, *fest))
+        ebases = [_edge_bases(e) for e in v_edges]
         faces = [*f.U0, *(F for row in f.v0f for F in row)]
         stream = _stream_ptr(ref)
-        for k in layout.grid.shards():
-            start = layout.start(k)
+        for k, (start, _, eoffs) in zip(layout.grid.shards(), shards):
             ptrs = [*(_col_ptr(B, start[a]) for a, B in enumerate(bands.b)),
                     *(_ptr(x, start) for x in (*v, *faces, *out)),
-                    *(p for e in v_edges for p in _edge_ptrs(layout, k, e)),
+                    *(x for eb in ebases for x in _edge_ptrs(eb, eoffs)),
                     *self._face_hi_ptrs(layout, k, face_hi)]
             self._launch(ref.dtype, layout.key, (_VP * len(ptrs))(*ptrs), geom, plan,
                          stream)

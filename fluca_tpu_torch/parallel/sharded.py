@@ -57,19 +57,16 @@ class ShardedPoisson:
             raise ValueError(f"unknown mode {mode!r}")
         _check_dtype(level.vol.dtype)
         self.layout = halo_layout(grid, level.mesh)
-        self.coeffs = level.coeffs
-        self.mode = mode
-        self.omega = omega
         self.kernel = (cuda_stencil.poisson2d_halo if level.mesh.dim == 2
                        else cuda_stencil.poisson3d_halo)
+        self.call = self.kernel.prepare(mode, level.coeffs, self.layout, omega)
 
     def __call__(self, p, b=None, w=None):
         return self.launch(p, field_edges(self.layout, p), b, w)
 
     def launch(self, p, edges, b=None, w=None):
         """The kernels on edge planes ``edges`` of p (``field_edges``)."""
-        return self.kernel(self.mode, p, self.coeffs, self.layout, edges, b, w,
-                           self.omega)
+        return self.kernel.run(self.call, p, edges, b, w)
 
 
 def build_poisson_sharded(grid: DeviceGrid, level, mode: str = "apply",

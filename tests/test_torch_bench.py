@@ -16,7 +16,8 @@ import torch
 
 from fluca_tpu_torch import bench
 from fluca_tpu_torch.examples import (
-    kernels512, plans512, probe512, probe512split, probe_poisson512, profile512,
+    kernels2d, kernels512, pin128, plans512, probe512, probe512split, probe_poisson512,
+    profile512, steps2d,
 )
 
 from torch_threads import one_thread_per_worker  # noqa: F401 (autouse fixture)
@@ -170,7 +171,7 @@ def test_cuda_without_a_card_raises():
         probe512split.main([])
 
 
-@pytest.mark.parametrize("example", [kernels512, plans512])
+@pytest.mark.parametrize("example", [kernels512, plans512, kernels2d])
 def test_kernel_timing_examples_refuse_the_cpu(example):
     """The kernel timings (CUDA graphs of the kernels' launches) need a
     CUDA device: on the CPU they refuse, they do not time the plain
@@ -230,3 +231,34 @@ def test_port_imports_no_jax_and_writes_no_reference_records():
         text = f.read_text()
         assert not imports.search(text), f
         assert not records.search(text), f
+
+
+def test_steps2d_on_the_cpu(monkeypatch, capsys):
+    """The 2-D cavity timings run both solvers at every size asked for and
+    report steps/s and the launches per step (none on the CPU, where the
+    wrappers take the plain versions)."""
+    monkeypatch.setattr(steps2d, "SIZES", {8: (0.01, 2, 2)})
+    assert steps2d.main(["--sizes", "8", "--device", CPU]) == 0
+    r = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(r) == {"package", "device", "8x8 f32_production", "8x8 bf16_both"}
+    for label in steps2d.SOLVERS:
+        run = r[f"8x8 {label}"]
+        assert run["steps"] == 2 and run["steps_per_sec"] > 0 and run["launches_per_step"] == {}
+    assert steps2d.solver("bf16_both").precond_scope == "both"
+    assert steps2d.solver("f32_production").precond_dtype != "bfloat16"
+
+
+def test_pin128_saves_and_compares_steps(monkeypatch, tmp_path, capsys):
+    """The bf16 pin's step trace: a run compared with its own saved steps
+    differs by 0 at every step; --repeats runs the bf16 solve again."""
+    cavity = pin128.setup_cavity_2d
+    monkeypatch.setattr(pin128, "setup_cavity_2d", lambda **kw: cavity(**{**kw, "N": 8}))
+    trace = tmp_path / "steps.pt"
+    assert pin128.main(["--device", CPU, "--steps", "2", "--save-steps", str(trace)]) == 0
+    first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(torch.load(trace)) == 2 and len(first["max_dev_bf16"]) == 1
+    assert pin128.main(["--device", CPU, "--steps", "2", "--repeats", "2",
+                        "--compare-steps", str(trace)]) == 0
+    r = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert r["max_abs_vs_saved_by_step"] == [0.0, 0.0]
+    assert r["max_dev_bf16"] == first["max_dev_bf16"] * 2

@@ -38,6 +38,7 @@ from fluca_tpu_torch.ns.ns import NS
 from fluca_tpu_torch.ops import cuda_stencil
 from fluca_tpu_torch.solvers.mg import PoissonMG as TMG
 
+from torch_launch_cover import march2d_cover
 from torch_threads import one_thread_per_worker  # noqa: F401 (autouse fixture)
 
 RTOL = 1e-12
@@ -193,3 +194,75 @@ def test_source_hash_tracks_sources():
     assert cuda_stencil.build_dir().name == "fluca_tpu_torch"
     for name in cuda_stencil.SOURCES + cuda_stencil.HEADERS:
         assert (cuda_stencil.CSRC_DIR / name).is_file()
+
+
+# ----------------------------------------------------------------------
+# the 2-D kernels' launch plans (csrc/poisson2d.cu, csrc/momentum2d.cu)
+# ----------------------------------------------------------------------
+
+# 4096^2 (the bench's SpMV); 256^2 and every level of its hierarchy (the
+# cavity); 1024^2; 37x29 and 176x88 (the cylinder's grid); one row and one
+# column; the local blocks of 32^2 and 4096^2 on (4, 2)
+PLAN2D_SHAPES = [(4096, 4096), (256, 256), (128, 128), (64, 64), (32, 32), (1024, 1024),
+                 (37, 29), (176, 88), (1, 1000), (1000, 1), (1, 1), (8, 16), (1024, 2048)]
+PLAN2D = {"poisson2d": (cuda_stencil.poisson2d_launch_plan, 1, 512),
+          "momentum2d": (cuda_stencil.momentum2d_launch_plan, 2, 256)}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, F64, torch.bfloat16])
+@pytest.mark.parametrize("shape", PLAN2D_SHAPES)
+@pytest.mark.parametrize("kernel", list(PLAN2D))
+def test_2d_launch_plan_covers_every_cell_once(kernel, shape, dtype, aligned):
+    """Every cell is computed by exactly one thread (the rows by one run,
+    the columns by one lane of one warp, none past the row's end), within
+    the card's grid, block and shared-memory limits; a lane holds at most
+    16 bytes of cells, one unless the addresses are aligned, and a number
+    of them that divides the row; the block stages the run's 4 axis-0
+    values per row (Poisson)."""
+    plan_of, reach, max_threads = PLAN2D[kernel]
+    plan = plan_of(shape, dtype, aligned)
+    rows, cols = march2d_cover(plan, shape, reach)
+    assert np.array_equal(rows, np.ones(shape[0])) and np.array_equal(cols, np.ones(shape[1]))
+    gx, gy = plan.grid
+    assert gx < 2**31 and gy <= 65535 and 32 * plan.rows <= max_threads
+    assert shape[1] % plan.vec == 0 and plan.vec * dtype.itemsize <= 16
+    assert aligned or plan.vec == 1
+    item = cuda_stencil.coef_dtype(dtype).itemsize
+    assert plan.smem == (4 * item * plan.run if kernel == "poisson2d" else 0)
+    assert list(plan.as_c()) == [gx, gy, plan.rows, plan.run, plan.vec, plan.smem]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PLAN2D_SHAPES)
+@pytest.mark.parametrize("kernel", list(PLAN2D))
+def test_2d_launch_plan_fills_the_card(kernel, shape, dtype):
+    """A block per row (the momentum kernel; the Poisson kernel's coarse
+    levels, where the shape has fewer rows and strips than twice its
+    target) and so at least one block per SM of the H100's 132 where the
+    shape has that many rows; up to 4 warps per
+    block, fewer only where a row has fewer strips; the kernel's widest
+    cells per lane (POISSON2D_VEC, MOMENTUM2D_VEC; half of them for the
+    Poisson kernel's one-row runs) where the row allows them."""
+    plan_of, reach, _ = PLAN2D[kernel]
+    plan = plan_of(shape, dtype)
+    strips = -(-shape[1] // cuda_stencil.march2d_columns(reach, plan.vec))
+    gx, gy = plan.grid
+    assert gx * gy >= min(132, shape[0])
+    assert plan.rows == min(4, strips)
+    if kernel == "momentum2d" or shape[0] * gx < 2 * cuda_stencil.POISSON2D_TARGET_BLOCKS:
+        assert plan.run == 1
+    wide = (cuda_stencil.POISSON2D_VEC if kernel == "poisson2d"
+            else cuda_stencil.MOMENTUM2D_VEC)[dtype]
+    if kernel == "poisson2d" and plan.run == 1:
+        wide = max(1, wide // 2)  # one-row runs: half the cells per lane
+    if shape[1] % wide == 0:
+        assert plan.vec == wide
+
+
+@pytest.mark.parametrize("shape", [(65535 * 64 + 1, 1),   # more runs than the grid's y extent
+                                   (0, 4), (4, 0), (4,), (4, 4, 4)])
+@pytest.mark.parametrize("kernel", list(PLAN2D))
+def test_2d_launch_plan_refuses_what_cannot_fit(kernel, shape):
+    with pytest.raises(ValueError):
+        PLAN2D[kernel][0](shape, torch.float32)

@@ -18,6 +18,7 @@ of the reduced-precision ABF preconditioner, on the CPU.
   and 3.7e-3 (3-D). A wrong coefficient or offset shows at O(1).
 """
 
+import ctypes
 import re
 
 import numpy as np
@@ -215,6 +216,17 @@ def test_every_source_exports_every_instance():
     assert cuda_stencil.coef_dtype(BF16) == F32
     assert cuda_stencil.coef_dtype(F32) == F32
     assert cuda_stencil.coef_dtype(F64) == F64
+    # the 2-D kernels: one marching template each for the unsharded and
+    # halo instances, whose entry points take the launch plan; no
+    # per-load boundary logic
+    for name in ("poisson2d", "momentum2d"):
+        src = (cuda_stencil.CSRC_DIR / f"{name}.cu").read_text()
+        assert len(re.findall(r"__global__", src)) == 1, name
+        assert "load2d" not in src and "Lane2D" in src, name
+        for k in (getattr(cuda_stencil, name), getattr(cuda_stencil, f"{name}_halo")):
+            assert k.source == f"{name}.cu"
+            assert ctypes.POINTER(ctypes.c_int) in k.argtypes, k.name
+    assert "load2d" not in (cuda_stencil.CSRC_DIR / "stencil_common.cuh").read_text()
 
 
 # ----------------------------------------------------------------------

@@ -18,6 +18,8 @@ comparisons skip when fewer than 8 devices exist, as the reference's do.
 Same inputs for both packages: made with numpy from a seed, the 2-D
 plane stack and the 3-D bands built by fluca_tpu and handed to both."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -48,7 +50,7 @@ from fluca_tpu_torch.parallel.mesh import make_device_grid
 from fluca_tpu_torch.parallel.sharded import field_edges, halo_layout
 from fluca_tpu_torch.solvers.mg import PoissonMG as TMG
 
-from torch_launch_cover import march3d_cells, march3d_cover
+from torch_launch_cover import march2d_cover, march3d_cells, march3d_cover
 from torch_threads import one_thread_per_worker  # noqa: F401 (autouse fixture)
 
 RTOL = 1e-12
@@ -320,3 +322,69 @@ def test_poisson3d_halo_launch_plan_refuses_what_cannot_fit():
                            (2 * (65536 * 8 + 1), 1, 1), (False,) * 3)
     with pytest.raises(ValueError, match="does not fit"):
         cs.poisson3d_launch_plan(layout.local, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("shape", [(4, 2), (2, 4), (1, 1)])
+@pytest.mark.parametrize("N", [(32, 32), (4096, 4096), (256, 256), (64, 32)])
+@pytest.mark.parametrize("kernel", ["poisson2d", "momentum2d"])
+def test_2d_halo_launch_plan_covers_every_cell_once(kernel, N, shape, dtype):
+    """The 2-D halo instances launch the plan of the shards' local block
+    (poisson2d_launch_plan / momentum2d_launch_plan(layout.local)) once per
+    shard: every cell of every block is computed by exactly one thread, so
+    the shards cover the grid once; within the card's grid limits."""
+    layout = cs.HaloLayout(make_device_grid(2, ["cpu"], shape=shape), N, (False, True))
+    plan_of = getattr(cs, f"{kernel}_launch_plan")
+    plan = plan_of(layout.local, dtype)
+    c0, c1 = march2d_cover(plan, layout.local, 1 if kernel == "poisson2d" else 2)
+    counts = [np.zeros(n, int) for n in N]
+    for k in layout.grid.shards():
+        for a, c in enumerate((c0, c1)):
+            if k[1 - a] == 0:
+                s = layout.start(k)[a]
+                counts[a][s:s + layout.local[a]] += c
+    assert all(np.array_equal(c, np.ones(n)) for c, n in zip(counts, N))
+    assert plan.grid[1] <= 65535
+
+
+def test_2d_halo_wrappers_pass_the_launch_plan():
+    """The 2-D halo instances' C entry points take the local block's
+    launch plan, as the unsharded ones take the grid's."""
+    for k in (cs.poisson2d_halo, cs.momentum2d_halo, cs.poisson2d, cs.momentum2d):
+        assert ctypes.POINTER(ctypes.c_int) in k.argtypes, k.name
+
+
+@pytest.mark.parametrize("N, shape", [((32, 32), (4, 2)), ((32, 32), (1, 1)),
+                                      ((16, 16, 16), (2, 2, 2)), ((16, 8, 32), (2, 1, 4))])
+def test_halo_shard_offsets_address_each_box(N, shape):
+    """The cached per-shard offsets of a halo call (_halo_launch) address
+    each shard's first cell in the cell tensors and its element of each
+    edge-plane stack, as indexing the tensors does; the geometry array
+    carries the local and global extents first; the offsets count as
+    aligned where those of the cells and of the axis-0 edge planes (read
+    16 bytes at a time) are multiples of 16 bytes."""
+    D = len(N)
+    layout = cs.HaloLayout(make_device_grid(D, ["cpu"], shape=shape), N, (False,) * D)
+    p = torch.zeros(N)
+    edges = field_edges(layout, p)
+    geom, shards, aligned = cs._halo_launch(layout, p.stride(), p.element_size(),
+                                            cs._edge_strides(edges))
+    assert list(geom)[:2 * D] == [*layout.local, *N]
+    assert len(shards) == len(list(layout.grid.shards()))
+    offsets = []
+    for k, (start, cell, eoffs) in zip(layout.grid.shards(), shards):
+        assert start == layout.start(k)
+        assert p.data_ptr() + cell == p[start].data_ptr()
+        offsets += [cell] if eoffs[0] is None else [cell, eoffs[0]]
+        ptrs = cs._edge_ptrs(cs._edge_bases(edges), eoffs)
+        for a, e in enumerate(edges):
+            if e is None:
+                assert eoffs[a] is None and ptrs[2 * a:2 * a + 2] == [None, None]
+                continue
+            idx = tuple(k[a] if d == a else i for d, i in enumerate(start))
+            assert ptrs[2 * a:2 * a + 2] == [e[0][idx].data_ptr(), e[1][idx].data_ptr()]
+    assert aligned == all(x % 16 == 0 for x in offsets)
+    # the fields' own edge planes (field_edges) keep the 16-byte reads, even
+    # where another axis' planes sit at odd offsets (a (4, 2) grid's axis-1
+    # planes are the columns of one (N0, 4) stack)
+    assert aligned

@@ -1,7 +1,8 @@
 """The cells a launch plan covers, by the index maps the CUDA kernels
 use (csrc/momentum3d.cu momentum3d_kernel, csrc/poisson3d.cu
 poisson3d_kernel, csrc/chain3d.cu chain3d_kernel over its face box,
-csrc/probes.cu copy_scale_kernel), computed on the CPU: per axis, how
+csrc/poisson2d.cu and csrc/momentum2d.cu through stencil_common.cuh
+Lane2D, csrc/probes.cu copy_scale_kernel), computed on the CPU: per axis, how
 many threads write each index. The maps are products of per-axis maps, so
 a plan covers every cell exactly once where every axis' counts are all 1."""
 
@@ -51,3 +52,26 @@ def copy_cover(plan, rows_total, columns):
                 by_row[rr[rr < r1]] += 1
     c = (np.arange(gx)[:, None] * plan.threads + np.arange(plan.threads)[None, :]).ravel()
     return by_row, np.bincount(c[c < columns], minlength=columns)
+
+
+def march2d_cover(plan, shape, reach):
+    """(counts by row, counts by column) of a ``March2DPlan`` on a block
+    of ``shape`` cells whose stencil reaches ``reach`` columns to each
+    side: block (x, y) takes rows y*run .. y*run + run - 1 below N0; warp
+    w = x*rows + threadIdx.y owns the columns from w*cols, cols = (32 -
+    2*halo)*vec with halo = ceil(reach / vec) end lanes on each side; lane
+    t with halo <= t < 32 - halo writes the vec cells from w*cols + (t -
+    halo)*vec where that column lies below N1 (a cell past N1 lengthens the
+    column counts)."""
+    gx, gy = plan.grid
+    n0, n1 = shape
+    rows = np.zeros(n0, int)
+    for y in range(gy):
+        rows[y * plan.run:min(y * plan.run + plan.run, n0)] += 1
+    halo = -(-reach // plan.vec)
+    cols = (32 - 2 * halo) * plan.vec
+    js = (np.arange(gx * plan.rows)[:, None] * cols
+          + (np.arange(halo, 32 - halo)[None, :] - halo) * plan.vec).ravel()
+    js = js[js < n1]
+    j = (js[:, None] + np.arange(plan.vec)[None, :]).ravel()
+    return rows, np.bincount(j, minlength=n1)
