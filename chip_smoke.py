@@ -4,8 +4,9 @@ Run from the root of a checkout:
 
     python3 chip_smoke.py            # every phase; exits non-zero on any failure
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of 3 steps
-                                     # of the 2-D cavity, 3-D cavity and the
-                                     # channels, float32 and bf16
+                                     # of the 2-D cavity, 3-D cavity, the
+                                     # channels (float32 and bf16) and the
+                                     # IBM cells
 
 Phases:
   1. device: a CUDA card must be present; prints its name and power limit;
@@ -68,6 +69,22 @@ Phases:
      bf16 preconditioner on the momentum solve), under the same gates, with
      the bf16 instances checked and timed at its shapes;
   9. app 3-D: the CLI entry point at 64^3 with -cart_dim 3;
+  9b. ibm: the immersed-boundary wakes through the port's checkpoint
+     loader, the step's kernels on their shapes and band sets (inflow,
+     PRESSURE_OUTLET, SYMMETRY) held against their plain versions first:
+     BASELINE #3, the 176x88 cylinder at Re 100 from the committed
+     checkpoint at t = 30, 64 x advance(5), St within 5 % of 0.164 and the
+     C_L amplitude in (0.1, 0.4); BASELINE #4 at its CI size, the 48x32x32
+     sphere from t = 25.02, advance(25), C_D drift < 5e-3 and within 2 % of
+     1.4680; both in float64 and float32; the 512x64 backward-facing step
+     (float64 and float32, from rest): a step and advance(20), the inlet
+     profile, the inlet's mass flux at the outlet within 1e-6, float32
+     against float64; the 128^3 sphere (float32, from
+     uniform flow): a step and advance(20), finite, steps/s and peak
+     memory, and its checkpoint restart at max abs 0; the float32 cylinder
+     restarted mid-run and run twice, at max abs 0; two planted faults (a
+     checkpoint byte flipped, one marker's spread weight zeroed) that must
+     be caught;
  10. sharded: the domain-decomposed step (parallel/, NS.shard,
      -parallel_grid), shards as boxes of the global tensors on the card:
      each halo instance (float32 and float64) against its plain version
@@ -116,19 +133,28 @@ import io
 import itertools
 import json
 import re
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import asdict
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from fluca_tpu_torch import app, bench
 from fluca_tpu_torch.examples import probe512, probe512split, probe_poisson512, profile512
+from fluca_tpu_torch.examples.cylinder_strouhal import strouhal
+from fluca_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from fluca_tpu_torch.mesh.cart import CartMesh
+from fluca_tpu_torch.models.bfs import reattachment_length, setup_bfs_2d
 from fluca_tpu_torch.models.cavity import setup_cavity_2d, setup_cavity_3d
 from fluca_tpu_torch.models.channel import setup_channel_3d
+from fluca_tpu_torch.models.cylinder import drag_lift_coefficients, setup_cylinder_2d
+from fluca_tpu_torch.models.sphere import drag_coefficient, setup_sphere_3d
 from fluca_tpu_torch.models.tgv import setup_taylor_green_2d
 from fluca_tpu_torch.ns import tables as T_
 from fluca_tpu_torch.ns.bc import BCType, BoundaryCondition, zero_velocity_bc
@@ -159,6 +185,14 @@ from fluca_tpu_torch.solvers import mg as mg_mod
 # roundoff, 2^-8 = 3.9e-3; a wrong
 # coefficient, offset or a float32 plane read as bf16 gives O(1e-2) or more.
 KERNEL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-13, torch.bfloat16: 4e-3}
+# The 2-D Poisson kernel rounds every product and sum on its own in the
+# plain version's order (csrc/poisson2d.cu sp_of), so each of its
+# instances, unsharded and halo, must equal the plain version at max abs
+# difference 0: a fused order parts its bf16 instance from the plain
+# version by a unit at up to a fifth of the cells of the 128^2 pin's Schur
+# applies, and the pin's runs on the card from those on the CPU
+# (examples/pin128_inner.py).
+EXACT_KERNELS = ("poisson2d", "poisson2d_halo")
 BF16 = torch.bfloat16
 DTYPE_NAMES = {torch.float32: "f32", torch.float64: "f64", BF16: "bf16"}
 # 5 fixed-budget cavity steps at 256^2, float32 on the card vs float64
@@ -203,8 +237,9 @@ INNER_BF16_MAX = {"schur random": 1.5e-2, "schur smooth": 2.8e-2, "momentum": 1.
 # 5e-2 U_lid. fluca_tpu measured 1.31e-4 and 9.36e-3 on its TPU
 # (TUNE_BUDGET_TPU.json), where XLA fuses several operations into one
 # rounding; its own code run op by op on the CPU gives 2.03e-2, the port
-# 1.5e-2 to 2.3e-2 on the CPU (by thread count) and 2.96e-2 on the H100
-# (tests/test_torch_bf16_witness.py pin).
+# 1.5e-2 to 2.3e-2 on the CPU (by thread count; tests/
+# test_torch_bf16_witness.py pin) and 2.21e-2 on the H100, where it read
+# 2.96e-2 while poisson2d summed with fused multiply-adds (EXACT_KERNELS).
 BUDGET_MAX_DEV = {"f32": 2e-4, "bf16": 5e-2}
 # The step chained (Chain3D) against unchained (the banded operators), in
 # float64, as ||a - b|| / ||b|| over v, over U and over p without its
@@ -506,6 +541,9 @@ def check_kernel(results, label, dtype, got, ref, kernel):
         if not err <= KERNEL_RTOL[dtype]:
             raise AssertionError(f"{label} {dtype}: rel err {err:.3e} > "
                                  f"{KERNEL_RTOL[dtype]:g}")
+        if kernel.name in EXACT_KERNELS and max_abs(g, r) != 0.0:
+            raise AssertionError(f"{label} {dtype}: max abs {max_abs(g, r):.3e} against "
+                                 f"the plain version, which it must equal bit for bit")
         results["max_abs_err"] = max(results["max_abs_err"], max_abs(g, r))
         results["max_rel_err"][dtype] = max(results["max_rel_err"][dtype], err)
     kernel.mark_checked()
@@ -1698,6 +1736,279 @@ def phase_app3d(entries):
 
 
 # ----------------------------------------------------------------------
+# the IBM wakes: BASELINE #3 and #4 from the committed checkpoints
+# ----------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parent
+# BASELINE #3, the cylinder wake at Re 100 (tests/test_shedding.py): 176x88
+# on 2.2 x 1.1, D 0.1, dt 5e-3, restarted from the saturated wake at t = 30
+# and advanced 64 x 5 steps (~2.6 shedding periods), C_L sampled after
+# each 5; St within 5 % of 0.164 (Williamson 1996) and the C_L amplitude
+# in (0.1, 0.4) (0.224 in the reference's CPU float64 run to t = 80).
+CYLINDER = dict(N=(176, 88), domain=(2.2, 1.1), center=(0.55, 0.55), diameter=0.1,
+                Re=100.0, dt=5e-3, max_steps=10**9)
+CYLINDER_CKPT = REPO / "tests" / "data" / "cylinder_saturated_t30"
+ST_REF, ST_TOL, AMP_RANGE = 0.164, 0.05, (0.1, 0.4)
+# BASELINE #4 at its CI size (tests/test_sphere.py): 48x32x32 on 3 x 2 x 2,
+# D 0.5, dt 0.02, restarted from the steady wake at t = 25.02 and advanced
+# 25 steps; C_D must not drift by 5e-3 and must stay within 2 % of 1.4680.
+SPHERE48 = dict(N=(48, 32, 32), domain=(3.0, 2.0, 2.0), center=(1.0, 1.0, 1.0),
+                diameter=0.5, Re=100.0, dt=0.02, max_steps=10**9)
+SPHERE48_CKPT = REPO / "tests" / "data" / "sphere_steady_t25"
+CD48_REF, CD48_TOL, CD_DRIFT = 1.4680, 0.02, 5e-3
+# BASELINE #4 at full width (examples/sphere_drag.py): 128^3 on 4^3, D 0.5
+# at (1.5, 2, 2), markers 0.5 h inside the surface, dt 8e-3, float32, from
+# uniform flow.
+SPHERE128 = dict(N=(128, 128, 128), domain=(4.0, 4.0, 4.0), center=(1.5, 2.0, 2.0),
+                 diameter=0.5, Re=100.0, dt=8e-3, retract=0.5, max_steps=10**9)
+# The backward-facing step (examples/backward_step.py's grid): 512x64 on
+# 10 x 1, Re 100, dt 0.01, the default solver, from rest; a step and
+# advance(20) in float64 and float32, gated as tests/test_bfs.py gates its
+# short run: finite, the inlet masked below the step and its parabola
+# above, the inlet's mass flux carried to the outlet within 1e-6; and the
+# float32 velocity within BFS_F32_VS_F64 of the float64 run's (4.9e-6 on
+# the CPU at these steps).
+BFS = dict(N=(512, 64), L=10.0, Re=100.0, dt=0.01, max_steps=10**9)
+BFS_FLUX_TOL, BFS_F32_VS_F64 = 1e-6, 1e-4
+KERNELS_2D = ("poisson2d", "momentum2d")
+KERNELS_3D = ("poisson3d", "momentum3d", *CHAIN_NAMES)
+
+
+def ibm_solver(setup, kw, dtype, ckpt=None):
+    """An IBM model on the card under production(3, 8, 8), restored from
+    the checkpoint ``ckpt`` where one is named."""
+    ns, ibm = setup(**kw, dtype=dtype, device="cuda")
+    ns.impl.cfg = CNLinearConfig.production(outer=3, mom=8, schur=8)
+    if ckpt is not None:
+        load_checkpoint(str(ckpt), ns)
+    return ns, ibm
+
+
+def counted(label, fn, steps, kernels, runs):
+    """fn() with every launch count at 0 just before and read just after,
+    between synchronisations; each of ``kernels`` must have launched.
+    Records the run's launches per step, by kernel (all instances), in
+    ``runs[label]``; returns fn's wall seconds."""
+    torch.cuda.synchronize()
+    cuda_stencil.reset_launch_counts()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_kernel = {k.name: k.launches for k in cuda_stencil.KERNELS}
+    for name in kernels:
+        if by_kernel[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by {label}")
+    runs[label] = {k: round(n / steps, 2) for k, n in by_kernel.items() if n}
+    return wall
+
+
+def states_max_abs(a, b) -> float:
+    return max(max_abs(x, y) for x, y in zip((*a["v"], *a["U"], a["p"], a["phalf"]),
+                                             (*b["v"], *b["U"], b["p"], b["phalf"])))
+
+
+def state_copy(state):
+    return {k: (tuple(t.clone() for t in v) if isinstance(v, tuple) else v.clone())
+            for k, v in state.items()}
+
+
+def cylinder_regression(smi, entries, dtype, runs):
+    """BASELINE #3 on the card in ``dtype``, gated as tests/test_shedding.py."""
+    name = DTYPE_NAMES[dtype]
+    ns, ibm = ibm_solver(setup_cylinder_2d, CYLINDER, dtype, CYLINDER_CKPT)
+    if not abs(ns.t - 30.0) < 0.01:
+        raise AssertionError(f"cylinder checkpoint at t={ns.t}, expected 30")
+    check_solver_stencils(entries, f"cylinder 176x88 {name}", ns)
+    ts, cl = [], []
+
+    def drive():
+        for _ in range(64):
+            ns.advance(5)
+            ts.append(ns.t)
+            cl.append(drag_lift_coefficients(ns, ibm, U_in=1.0, diameter=0.1)[1])
+
+    wall = counted(f"cylinder 176x88 {name}", drive, 320, KERNELS_2D, runs)
+    assert_finite(ns, f"cylinder {name}")
+    st, amp = strouhal(ts, cl)
+    print(f"[ibm] cylinder 176x88 {name}: from t=30.005, 64 x advance(5) in {wall:.2f} s, "
+          f"{320 / wall:.2f} steps/s (with 64 C_L reads); St {st:.4f} (gate {ST_REF} "
+          f"+-{ST_TOL:.0%}), C_L amplitude {amp:.4f} (gate {AMP_RANGE}); "
+          f"{sum(runs[f'cylinder 176x88 {name}'].values()):.0f} stencil launches per step; "
+          f"{smi}", flush=True)
+    if not abs(st - ST_REF) < ST_TOL * ST_REF:
+        raise AssertionError(f"cylinder {name}: St {st} outside {ST_REF} +- {ST_TOL:.0%}")
+    if not AMP_RANGE[0] < amp < AMP_RANGE[1]:
+        raise AssertionError(f"cylinder {name}: C_L amplitude {amp} outside {AMP_RANGE}")
+
+
+def sphere_regression(smi, entries, dtype, runs):
+    """BASELINE #4 at its CI size in ``dtype``, gated as tests/test_sphere.py."""
+    name = DTYPE_NAMES[dtype]
+    ns, ibm = ibm_solver(setup_sphere_3d, SPHERE48, dtype, SPHERE48_CKPT)
+    if not abs(ns.t - 25.0) < 0.05:
+        raise AssertionError(f"sphere checkpoint at t={ns.t}, expected 25")
+    check_chain_solver(entries, f"sphere 48x32x32 {name}", ns)
+    check_solver_stencils(entries, f"sphere 48x32x32 {name}", ns)
+    cd0 = drag_coefficient(ns, ibm, 1.0, 0.5)
+    wall = counted(f"sphere 48x32x32 {name}", lambda: ns.advance(25), 25, KERNELS_3D, runs)
+    cd1 = drag_coefficient(ns, ibm, 1.0, 0.5)
+    assert_finite(ns, f"sphere 48 {name}")
+    print(f"[ibm] sphere 48x32x32 {name}: advance(25) from t=25.02 in {wall:.2f} s, "
+          f"{25 / wall:.2f} steps/s; cd {cd0:.5f} -> {cd1:.5f} (drift gate {CD_DRIFT}, "
+          f"{CD48_REF} +-{CD48_TOL:.0%}); "
+          f"{sum(runs[f'sphere 48x32x32 {name}'].values()):.0f} stencil launches per step; "
+          f"{smi}", flush=True)
+    if not abs(cd1 - cd0) < CD_DRIFT:
+        raise AssertionError(f"sphere {name}: cd drifted {cd0} -> {cd1}")
+    if not abs(cd1 - CD48_REF) < CD48_TOL * CD48_REF:
+        raise AssertionError(f"sphere {name}: cd {cd1} outside {CD48_REF} +- {CD48_TOL:.0%}")
+
+
+def bfs_run(smi, entries, runs):
+    """The backward-facing step at 512x64 on the card, float64 and float32:
+    its solver's kernels held against their plain versions, a step, and a
+    counted advance(20) under tests/test_bfs.py's gates."""
+    vel = {}
+    for dtype in (torch.float64, torch.float32):
+        name = DTYPE_NAMES[dtype]
+        label = f"bfs 512x64 {name}"
+        ns = setup_bfs_2d(**BFS, dtype=dtype, device="cuda")
+        check_solver_stencils(entries, label, ns)
+        ns.step()
+        wall = counted(label, lambda: ns.advance(20), 20, KERNELS_2D, runs)
+        assert_finite(ns, label)
+        Ux = ns.state["U"][0].to("cpu", torch.float64).numpy()
+        y, wy = np.asarray(ns.mesh.centers(1)), np.asarray(ns.mesh.widths(1))
+        flux_in, flux_out = float((Ux[0] * wy).sum()), float((Ux[-1] * wy).sum())
+        below, above = np.abs(Ux[0][y < 0.5]).max(), Ux[0][y > 0.5].max()
+        vel[dtype] = [x.to("cpu", torch.float64) for x in ns.state["v"]]
+        print(f"[ibm] {label}: step + advance(20) to t={ns.t:.2f}, {20 / wall:.2f} steps/s; "
+              f"inlet flux {flux_in:.9f}, outlet {flux_out:.9f} (gate {BFS_FLUX_TOL}); "
+              f"inlet below the step max |U| {below:.3e}, peak above {above:.4f}; "
+              f"x_r/S {reattachment_length(ns) / 0.5:.4f}; "
+              f"{sum(runs[label].values()):.0f} stencil launches per step; {smi}", flush=True)
+        if not abs(flux_out - flux_in) < BFS_FLUX_TOL * max(abs(flux_in), 1.0):
+            raise AssertionError(f"{label}: outlet flux {flux_out}, inlet {flux_in}")
+        if not (below < 1e-12 and above > 1.0):
+            raise AssertionError(f"{label}: inlet profile {below} below, {above} above")
+    dist = max(max_abs(a, b) for a, b in zip(vel[torch.float32], vel[torch.float64]))
+    print(f"[ibm] bfs 512x64: float32 velocity against float64: max abs {dist:.3e} "
+          f"(gate {BFS_F32_VS_F64})", flush=True)
+    if not dist < BFS_F32_VS_F64:
+        raise AssertionError(f"bfs 512x64: float32 parts from float64 by {dist}")
+
+
+def flip_byte_refused(ck, tmp):
+    """A copy of checkpoint ``ck`` with one payload byte of p.bin flipped
+    must be refused on load (its CRC)."""
+    bad = os.path.join(tmp, "flipped")
+    shutil.copytree(ck, bad)
+    path = Path(bad, "p.bin")
+    raw = bytearray(path.read_bytes())
+    raw[24 + len(raw) // 3] ^= 0x10
+    path.write_bytes(bytes(raw))
+    ns, _ = ibm_solver(setup_cylinder_2d, CYLINDER, torch.float32)
+    try:
+        load_checkpoint(bad, ns)
+    except IOError as e:
+        return str(e)
+    raise AssertionError("a checkpoint with a flipped payload byte was loaded")
+
+
+def sphere128(smi, entries, runs, tmp):
+    """BASELINE #4 at full width, float32: one step, advance(20), and the
+    restart at size at max abs 0."""
+    torch.cuda.reset_peak_memory_stats()
+    ns, ibm = ibm_solver(setup_sphere_3d, SPHERE128, torch.float32)
+    check_chain_solver(entries, "sphere 128^3 f32", ns)
+    check_solver_stencils(entries, "sphere 128^3 f32", ns)
+    t0 = time.perf_counter()
+    ns.step()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    wall = counted("sphere 128^3 f32", lambda: ns.advance(20), 20, KERNELS_3D, runs)
+    assert_finite(ns, "sphere 128^3")
+    cd = drag_coefficient(ns, ibm, 1.0, 0.5)
+    rnorm = float(ns.last_diag["ksp_rnorm"])
+    if not (np.isfinite(cd) and np.isfinite(rnorm)):
+        raise AssertionError(f"sphere 128^3: cd {cd}, ksp_rnorm {rnorm}")
+    mem = torch.cuda.max_memory_allocated()
+    ck = os.path.join(tmp, "sphere128")
+    t1 = time.perf_counter()
+    save_checkpoint(ck, ns)
+    ns2, _ = ibm_solver(setup_sphere_3d, SPHERE128, torch.float32, ck)
+    io_s = time.perf_counter() - t1
+    ns.advance(5)
+    ns2.advance(5)
+    dist = states_max_abs(ns.state, ns2.state)
+    print(f"[ibm] sphere 128^3 f32 ({ibm.markers.X.shape[0]} markers): first step "
+          f"{first:.2f} s, advance(20) in {wall:.2f} s, {20 / wall:.2f} steps/s; cd "
+          f"{cd:.5f} at t={ns.t - 5 * ns.dt:.3f}, ksp_rnorm {rnorm:.4g}; peak memory "
+          f"{mem / 2**30:.3f} GiB; "
+          f"{sum(runs['sphere 128^3 f32'].values()):.0f} stencil launches per step; "
+          f"checkpoint save + load {io_s:.2f} s; restart + advance(5) against the run "
+          f"continued: max abs {dist:.3e}; {smi}", flush=True)
+    if dist != 0.0:
+        raise AssertionError(f"sphere 128^3: restart parts from the run by {dist}")
+    return {"steps_per_s": 20 / wall, "max_memory_bytes": mem,
+            "markers": int(ibm.markers.X.shape[0])}
+
+
+def cylinder_restart(tmp):
+    """float32 cylinder from t = 30: advance(20) equals advance(10), save,
+    load into a fresh solver, advance(10), at max abs 0; two fresh runs
+    of the same 10 steps are equal at max abs 0; a spread with one
+    marker's weight zeroed must part from them."""
+    a, _ = ibm_solver(setup_cylinder_2d, CYLINDER, torch.float32, CYLINDER_CKPT)
+    a.advance(20)
+    b, _ = ibm_solver(setup_cylinder_2d, CYLINDER, torch.float32, CYLINDER_CKPT)
+    b.advance(10)
+    b10 = state_copy(b.state)
+    ck = os.path.join(tmp, "cylinder")
+    save_checkpoint(ck, b)
+    c, _ = ibm_solver(setup_cylinder_2d, CYLINDER, torch.float32, ck)
+    c.advance(10)
+    restart = states_max_abs(a.state, c.state)
+    d, _ = ibm_solver(setup_cylinder_2d, CYLINDER, torch.float32, CYLINDER_CKPT)
+    d.advance(10)
+    rerun = states_max_abs(b10, d.state)
+    e, e_ibm = ibm_solver(setup_cylinder_2d, CYLINDER, torch.float32, CYLINDER_CKPT)
+    e_ibm.markers.ds[0] = 0.0  # the planted fault: marker 0 spreads nothing
+    e.advance(10)
+    fault = states_max_abs(e.state, d.state)
+    refused = flip_byte_refused(ck, tmp)
+    print(f"[ibm] cylinder f32 restart: advance(20) vs advance(10) + save + load + "
+          f"advance(10): max abs {restart:.3e}; two fresh runs of 10 steps: max abs "
+          f"{rerun:.3e}; planted fault (marker 0's weight zeroed in the spread): max abs "
+          f"{fault:.3e}; planted fault (a payload byte flipped): refused ({refused})",
+          flush=True)
+    if restart != 0.0 or rerun != 0.0:
+        raise AssertionError(f"cylinder restart {restart}, rerun {rerun}: expected 0")
+    if not fault > rerun:
+        raise AssertionError("the zeroed marker weight did not move the forced step")
+
+
+def phase_ibm(smi, entries):
+    """BASELINE #3 and #4 on the card from the committed checkpoints, in
+    float64 and float32; the backward-facing step; the 128^3 sphere;
+    restarts, determinism and two planted faults. Returns the runs' launches per step and the 128^3
+    sphere's figures."""
+    t0 = time.perf_counter()
+    runs = {}
+    for dtype in (torch.float64, torch.float32):
+        cylinder_regression(smi, entries, dtype, runs)
+        sphere_regression(smi, entries, dtype, runs)
+    bfs_run(smi, entries, runs)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        big = sphere128(smi, entries, runs, tmp)
+        cylinder_restart(tmp)
+    print(f"[ibm] all IBM runs passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs, big
+
+
+# ----------------------------------------------------------------------
 # the domain-decomposed step
 # ----------------------------------------------------------------------
 
@@ -2480,8 +2791,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also print a torch.profiler breakdown of 3 steps of "
                          "the 2-D cavity, the 3-D cavity, the 128^3 channel "
-                         "(float32 and bf16), both 512x256x256 channel runs, and "
-                         "the sharded and unsharded runs of phase_sharded")
+                         "(float32 and bf16), both 512x256x256 channel runs, "
+                         "the sharded and unsharded runs of phase_sharded, and "
+                         "the IBM cells (cylinder, sphere 48x32x32 and 128^3)")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -2548,6 +2860,7 @@ def main(argv=None) -> int:
     phase_channel512(smi, entries, profile=args.profile)
     phase_channel512_bf16(smi, entries, profile=args.profile)
     phase_app3d(entries)
+    ibm_runs, sphere128_figures = phase_ibm(smi, entries)
     launches_halo2d, launches_halo3d = phase_sharded(smi, entries, profile=args.profile)
     probe_entries = {}
     for name, (replaces, also) in PROBE_REPLACES.items():
@@ -2577,6 +2890,13 @@ def main(argv=None) -> int:
         phase_profile("channel 128^3 bf16 (both)", setup_channel_3d(
             N=(128, 128, 128), dt=2e-3, device="cuda"),
             bf16_precond(CNLinearConfig.production()))
+        # the IBM cells of phase_ibm, float32, production(3, 8, 8)
+        for label, setup, kw, ckpt in (
+                ("cylinder 176x88 f32", setup_cylinder_2d, CYLINDER, CYLINDER_CKPT),
+                ("sphere 48x32x32 f32", setup_sphere_3d, SPHERE48, SPHERE48_CKPT),
+                ("sphere 128^3 f32", setup_sphere_3d, SPHERE128, None)):
+            ns, _ = ibm_solver(setup, kw, torch.float32, ckpt)
+            phase_profile(label, ns, ns.impl.cfg)
     # each instance's launches in the main-path run that carries it: both
     # instances of a kernel from the same cell, the float32 and the bf16
     # preconditioner's run, at the shape of the kernel's times
@@ -2596,6 +2916,12 @@ def main(argv=None) -> int:
                                          + ("_halo" if name.endswith("_halo") else "")]
         e.update(shape=shape, launches_run=run, launches=counts[name],
                  launches_per_step=round(counts[name] / steps, 2))
+    # each kernel's launches per step in the IBM runs (phase_ibm), all
+    # instances of the run's dtype
+    for name, e in entries.items():
+        e["launches_ibm"] = {run: c[name] for run, c in ibm_runs.items() if name in c}
+    print(f"[ibm] launches per step by run: {json.dumps(ibm_runs)}; sphere 128^3: "
+          f"{json.dumps(sphere128_figures)}", flush=True)
     entries.update(probe_entries)
     for label, u in usage.items():
         if label in entries:
@@ -2608,7 +2934,7 @@ def main(argv=None) -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "unfused_ms", "unfused_launches", "kernels_ms", "unsharded_ms",
             "max_abs_vs_unsharded", "also_replaces", "max_abs_vs_poisson3d", "registers",
-            "spill_bytes", "at_4096")
+            "spill_bytes", "at_4096", "launches_ibm")
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                   for e in entries.values()]}))
     print(smi)

@@ -9,8 +9,11 @@ Mesh+NS from the options database, solves, and reports. Run e.g.:
 ``-device`` names the torch device (default ``cuda``; a missing card is
 an error, never a silent switch to the CPU). ``-parallel_grid auto |
 AxB[xC]`` runs the solver over a device grid whose shards share that
-device (``NS.shard``). Options whose subsystems are not ported yet raise
-NotImplementedError.
+device (``NS.shard``). Restart and output as the reference's main.c:
+``-mesh_cart_create_from_file F.cgns``, ``-load_checkpoint DIR``,
+``-ns_load_solution_from_file F.cgns`` before the solve;
+``-checkpoint DIR`` and ``-ns_view_solution F.cgns`` after it; a
+``cgns:F`` solution viewer on the monitors (``-viewer_cgns_batch_size``).
 """
 
 from __future__ import annotations
@@ -23,27 +26,22 @@ from fluca_tpu_torch.ns.bc import BCType, BoundaryCondition, zero_velocity_bc
 from fluca_tpu_torch.ns.ns import NS
 from fluca_tpu_torch.utils.options import global_options
 
-# options of subsystems still to be ported -> the ROADMAP item that
-# brings them
-_NOT_PORTED = {
-    "checkpoint": "checkpoint I/O (ROADMAP queue 1, item 2)",
-    "load_checkpoint": "checkpoint I/O (ROADMAP queue 1, item 2)",
-    "mesh_cart_create_from_file": "CGNS I/O (ROADMAP queue 1, item 2)",
-    "ns_load_solution_from_file": "CGNS I/O (ROADMAP queue 1, item 2)",
-    "ns_view_solution": "CGNS I/O (ROADMAP queue 1, item 2)",
-}
-
 
 def build(argv) -> NS:
-    """The NS of the options ``argv``, set up: the mesh from the
-    options, walls and a moving lid, rho 400, mu 1, dt 0.002."""
+    """The NS of the options ``argv``, set up: the mesh from the options
+    or a CGNS file, walls and a moving lid, rho 400, mu 1, dt 0.002; its
+    state restored from a checkpoint or a CGNS solution where the options
+    name one (main.c:36-48, 83-88)."""
     fluca_tpu_torch.initialize(argv)
     opts = global_options()
-    for name, what in _NOT_PORTED.items():
-        if opts.has(name):
-            raise NotImplementedError(f"-{name} needs {what}")
 
-    mesh = CartMesh.from_options(opts)
+    if opts.has("mesh_cart_create_from_file"):
+        from fluca_tpu_torch.io.cgns import mesh_from_cgns
+
+        mesh = mesh_from_cgns(opts.get_str("mesh_cart_create_from_file"))
+    else:
+        mesh = CartMesh.from_options(opts)
+
     wall = zero_velocity_bc()
     lid = BoundaryCondition(
         BCType.VELOCITY,
@@ -79,6 +77,17 @@ def build(argv) -> NS:
         grid = ns.device_grid
         print(f"parallel: {len(set(grid.devices))} devices, grid "
               f"{dict(zip(grid.axis_names, grid.shape))}")
+
+    if opts.has("load_checkpoint"):
+        from fluca_tpu_torch.io.checkpoint import load_checkpoint
+
+        load_checkpoint(opts.get_str("load_checkpoint"), ns)
+    # solution restart from CGNS (main.c:84-88): every field, phalf
+    # included, and the step and time
+    if opts.has("ns_load_solution_from_file"):
+        from fluca_tpu_torch.io.cgns import load_solution_cgns
+
+        load_solution_cgns(opts.get_str("ns_load_solution_from_file"), ns)
     return ns
 
 
@@ -91,15 +100,32 @@ def main(argv=None) -> int:
     )
     from fluca_tpu_torch.ns.monitor import set_monitors_from_options
 
-    set_monitors_from_options(
-        ns, opts,
-        writer_factory=lambda: create_viewer_from_options(
-            opts, "ns_monitor_solution_viewer"
-        ) or AsciiViewer(),
-    )
+    viewers = []
+
+    def solution_viewer():
+        w = create_viewer_from_options(
+            opts, "ns_monitor_solution_viewer", mesh=ns.mesh
+        ) or AsciiViewer()
+        viewers.append(w)
+        return w
+
+    set_monitors_from_options(ns, opts, writer_factory=solution_viewer)
 
     reason = ns.solve()
     print(f"done: {reason.name} at step {ns.step_index}, t={ns.t:g}")
+    # a CGNS viewer writes its time series when closed
+    for w in viewers:
+        w.close()
+
+    if opts.has("checkpoint"):
+        from fluca_tpu_torch.io.checkpoint import save_checkpoint
+
+        save_checkpoint(opts.get_str("checkpoint"), ns)
+    if opts.sub("ns_").has("view_solution"):
+        from fluca_tpu_torch.io.cgns import CGNSWriter
+
+        with CGNSWriter(opts.sub("ns_").get_str("view_solution"), ns.mesh) as w:
+            w.write_solution(ns)
 
     # -log_view: PETSc-style event summary at exit (nspkg.c:30-34)
     if opts.get_bool("log_view", False):

@@ -65,9 +65,9 @@
 //     barrier, and a block of one row (the coarse levels, where a launch
 //     is bound by its latency) reads its row's four values with them and
 //     stages nothing: it waits for one round of loads, not two;
-//   - the sums are explicit fused multiply-adds in the order nvcc gave the
-//     first design's expressions (sp below), so every instance equals it
-//     bit for bit, and the step its results.
+//   - every product and sum is rounded on its own, in the plain
+//     version's order (sp_of below), so every instance equals the plain
+//     version bit for bit.
 // The launch geometry (rows, run, VEC, grid, shared memory) comes from the
 // host (fluca_tpu_torch.ops.cuda_stencil.poisson2d_launch_plan); the entry
 // points check it against the shape and the addresses.
@@ -95,15 +95,22 @@ struct Args {
     int run;                         // rows per block
 };
 
-// Sp of one cell: the first design's (RX0 up + RX1 pc + RX2 dn) CY + RY
-// (CYb0 lf + CYb1 pc + CYb2 rt), contracted as nvcc contracted it.
+// Sp of one cell, ((RX0 up + RX1 pc) + RX2 dn) CY + RY ((CYb0 lf + CYb1
+// pc) + CYb2 rt), every product and sum rounded on its own in that order:
+// the plain version's arithmetic (cuda_stencil._poisson2d), so that the
+// kernel equals it bit for bit. Fused multiply-adds would round the sum
+// once where the plain version rounds each product; where the terms
+// cancel (the apply of a smooth p) that moves a bf16 store by a unit at
+// up to a fifth of the cells, and parts the bf16 preconditioner's runs
+// on the card from those on the CPU (examples/pin128_inner.py).
 template <typename C>
 __device__ __forceinline__ C sp_of(const C (&a)[4], C cy, C c0, C c1, C c2, C up, C pc, C dn,
                                    C lf, C rt) {
-    using fluca::mad;
-    const C x = mad(a[2], dn, mad(a[0], up, a[1] * pc));
-    const C y = mad(c2, rt, mad(c0, lf, c1 * pc));
-    return mad(x, cy, a[3] * y);
+    using fluca::add;
+    using fluca::mul;
+    const C x = mul(add(add(mul(a[0], up), mul(a[1], pc)), mul(a[2], dn)), cy);
+    const C y = mul(a[3], add(add(mul(c0, lf), mul(c1, pc)), mul(c2, rt)));
+    return add(x, y);
 }
 
 // The march of one warp over its block's run, s0 the block's staged
@@ -202,9 +209,11 @@ __device__ __forceinline__ void march(const Args<T>& h, const fluca::Lane2D<VEC,
             if (MODE == 0) {
                 out.v[k] = sp;
             } else if (MODE == 1) {
-                out.v[k] = x.bb.v[k] - sp;
+                out.v[k] = fluca::sub(x.bb.v[k], sp);
             } else {
-                out.v[k] = fluca::mad(h.omega * x.ww.v[k], x.bb.v[k] - sp, pc.v[k]);
+                // p + ((omega w) (b - Sp)), as the plain version rounds it
+                out.v[k] = fluca::add(pc.v[k], fluca::mul(fluca::mul(h.omega, x.ww.v[k]),
+                                                          fluca::sub(x.bb.v[k], sp)));
             }
         }
         if (L.compute) out.store(h.out + (i0 + ii) * st0 + L.own);

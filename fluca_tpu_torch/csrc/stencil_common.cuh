@@ -21,7 +21,8 @@
 //   resolved once per thread, not per load as load3d does): momentum3d.cu
 //   and poisson3d.cu;
 // - mad (a fused multiply-add whatever the context): every kernel but
-//   probes.cu's copies.
+//   probes.cu's copies and poisson2d.cu; mul, add, sub (one rounding
+//   each, never contracted): poisson2d.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,6 +79,17 @@ __device__ __forceinline__ float mad(float a, float b, float c) {
 __device__ __forceinline__ double mad(double a, double b, double c) {
     return __fma_rn(a, b, c);
 }
+
+// A product, sum or difference rounded on its own, which the compiler may
+// not contract into a fused multiply-add: the arithmetic of a plain
+// PyTorch version, where every operation is one rounded kernel
+// (poisson2d.cu).
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
 
 __device__ __forceinline__ int wrap_index(int k, int n) {
     k %= n;

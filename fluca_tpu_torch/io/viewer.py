@@ -1,10 +1,9 @@
-"""Option-string viewer factory (ASCII viewers).
+"""Option-string viewer factory (ASCII and CGNS viewers).
 
 Reference: FlucaOptionsCreateViewer (fluca/src/viewer/interface/
-viewerbasic.c:4-145) parses ``type:filename:format:mode`` strings from
-the options database. Same syntax here; returns a viewer object with
-``write_solution(ns)``/``close``. The CGNS viewer type is not ported
-yet (ROADMAP queue 1, item 2).
+viewerbasic.c:4-145) parses ``type:filename:format:mode`` strings
+(types ``ascii``/``cgns``) from the options database. Same syntax here;
+returns a viewer object with ``write_solution(ns)``/``close``.
 """
 
 from __future__ import annotations
@@ -77,7 +76,7 @@ def parse_viewer_spec(spec: str):
     return vtype, filename, fmt, mode
 
 
-def create_viewer_from_options(opts, name: str):
+def create_viewer_from_options(opts, name: str, mesh=None):
     """Parse ``-<name> type[:filename[:format[:mode]]]`` into a viewer
     (viewerbasic.c:133-145). Returns None when the option is absent."""
     spec = opts.get_str(name)
@@ -87,7 +86,12 @@ def create_viewer_from_options(opts, name: str):
     if vtype == "ascii":
         return AsciiViewer(filename, mode=mode, fmt=fmt)
     if vtype in ("cgns", "flucacgns"):
-        raise NotImplementedError(
-            "CGNS viewers are not ported yet (ROADMAP queue 1, item 2)"
-        )
+        from fluca_tpu_torch.io.cgns import CGNSWriter
+
+        if mesh is None:
+            raise ValueError("a cgns viewer needs the mesh")
+        if not filename:
+            raise ValueError(f"a cgns viewer needs a filename: {spec!r}")
+        batch = opts.get_int("viewer_cgns_batch_size", None)
+        return CGNSWriter(filename, mesh, batch_size=batch)
     raise ValueError(f"unknown viewer type {vtype!r} in {spec!r}")

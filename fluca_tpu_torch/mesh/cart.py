@@ -107,6 +107,11 @@ class CartMesh:
             self.nfaces(a) if a == d else self.N[a] for a in range(self.dim)
         )
 
+    @property
+    def is_set_up(self) -> bool:
+        """Whether the coordinates are set."""
+        return len(self.faces) == self.dim
+
     # -- coordinates --------------------------------------------------
     def set_uniform_coordinates(self, *bounds) -> None:
         """Reference: MeshCartSetUniformCoordinates. ``bounds`` is
@@ -149,6 +154,22 @@ class CartMesh:
     def length(self, d: int) -> float:
         return float(self.faces[d][-1] - self.faces[d][0])
 
+    def centers_ext(self, d: int, width: int = 1) -> np.ndarray:
+        """Cell centers with ``width`` ghost entries on each side: wrapped
+        with period L on a periodic axis, mirrored about the end faces
+        otherwise (fluca_tpu/mesh/cart.py:160-177)."""
+        c = self.centers(d)
+        L = self.length(d)
+        left, right = [], []
+        for w in range(1, width + 1):
+            if self.periodic[d]:
+                left.append(c[-w] - L)
+                right.append(c[w - 1] + L)
+            else:
+                left.append(2.0 * self.faces[d][0] - c[w - 1])
+                right.append(2.0 * self.faces[d][-1] - c[-w])
+        return np.concatenate([left[::-1], c, right])
+
     # -- field allocation helpers -------------------------------------
     # Every call makes new tensors: state leaves never share storage.
     def zeros_cell(self, device, dtype=None):
@@ -167,6 +188,17 @@ class CartMesh:
             for d in range(self.dim)
         )
 
+    def zeros_face_vector(self, device, dtype=None):
+        """Face vector: [face axis][component], every leaf its own tensor."""
+        return tuple(
+            tuple(
+                torch.zeros(self.face_shape(d), dtype=config.resolve_dtype(dtype),
+                            device=device)
+                for _ in range(self.dim)
+            )
+            for d in range(self.dim)
+        )
+
     # -- misc ----------------------------------------------------------
     def cell_volumes(self) -> np.ndarray:
         """Dense array of cell volumes (outer product of widths)."""
@@ -174,6 +206,10 @@ class CartMesh:
         for d in range(1, self.dim):
             vol = np.multiply.outer(vol, self.widths(d))
         return vol
+
+    def boundary_index(self, loc) -> int:
+        """The boundary index of a BoundaryLoc, its name or its index."""
+        return int(BoundaryLoc[loc.upper()] if isinstance(loc, str) else loc)
 
     def __repr__(self):
         per = ",".join("P" if p else "N" for p in self.periodic)

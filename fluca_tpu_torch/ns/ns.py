@@ -156,6 +156,15 @@ class NS:
         return self.impl.grid if self.impl is not None else None
 
     # -- solution access ----------------------------------------------
+    @property
+    def solution(self):
+        return self.state
+
+    def get_solution_sub(self, field: str):
+        """Reference: NSGetSolutionSubVector (nssol.c:44-128)."""
+        self.setup()
+        return self.state[field]
+
     def set_solution(self, v=None, U=None, p=None, phalf=None) -> None:
         self.setup()
         if v is not None:

@@ -55,6 +55,7 @@ if __name__ == "__main__":  # run as a script: the settings of conftest.py
 
 import functools
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -183,6 +184,44 @@ def test_bf16_momentum_solve_against_reference():
     got32, ref32 = (np.stack([np.asarray(x, np.float64) for x in xs])
                     for xs in (got32, ref32))
     assert rel(got32, ref32) <= F32_BOUND
+
+
+# ----------------------------------------------------------------------
+# the pin's first step: the card's bf16 Poisson calls
+# ----------------------------------------------------------------------
+
+# Four bf16 calls of the 2-D Poisson kernel in the pin's first Schur solve
+# (a smooth, the first apply, a smooth and a residual at 128^2, where the
+# cells' terms cancel), recorded on an H100 by
+# fluca_tpu_torch/examples/pin128_inner.py --save ... --poisson-calls.
+CARD_POISSON_CALLS = Path(__file__).resolve().parent / "torch_data" / \
+    "pin128_poisson2d_bf16_h100.npz"
+
+
+def test_torch_pin_poisson2d_bf16_equals_card():
+    """The plain version of the 2-D Poisson kernel, on the card's recorded
+    inputs, gives the card's recorded outputs at max abs difference 0. A
+    kernel that sums with fused multiply-adds, where the plain version
+    rounds each product, fails here: on such a record the two part by a
+    bf16 unit at up to a fifth of the cells (the apply of a smooth p),
+    which moved the pin's first step on the card 0.53 U from the CPU's,
+    and its 50-step reading to 2.9557e-02 U, outside the CPU's spread."""
+    from fluca_tpu_torch.ops import cuda_stencil
+
+    z = np.load(CARD_POISSON_CALLS)
+    c = cuda_stencil.Poisson2DCoeffs(*(torch.as_tensor(z[f]) for f in ("rx", "ry", "cy", "cyb")),
+                                     tuple(bool(x) for x in z["periodic"]))
+
+    def field(key):
+        return torch.from_numpy(z[key]).view(BF16) if key in z else None
+
+    for k, mode in enumerate(z["modes"]):
+        got = cuda_stencil.poisson2d(str(mode), field(f"p{k}"), c, field(f"b{k}"),
+                                     field(f"w{k}"), float(z["omega"][k]))
+        card = field(f"out{k}")
+        differ = (got.double() != card.double())
+        assert not bool(differ.any()), \
+            f"call {k} ({mode}): {float(differ.double().mean()):.4f} of the cells differ"
 
 
 # ----------------------------------------------------------------------

@@ -132,9 +132,14 @@ def test_app_runs_on_cpu(capsys):
     "checkpoint", "load_checkpoint", "mesh_cart_create_from_file",
     "ns_load_solution_from_file", "ns_view_solution",
 ])
-def test_app_refuses_options_not_ported(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        app.main(["-device", "cpu", "-cart_grid_x", "8", f"-{option}", "x"])
+def test_app_refuses_options_not_ported(option, tmp_path):
+    """The restart and output options, refused until the I/O was ported,
+    now act on their path: one that cannot be read or written (under a
+    regular file) fails with the I/O error, not NotImplementedError."""
+    (tmp_path / "f").write_text("")
+    with pytest.raises(OSError):
+        app.main(["-device", "cpu", "-cart_grid_x", "8", "-cart_grid_y", "8",
+                  "-ns_max_steps", "1", f"-{option}", str(tmp_path / "f" / "x")])
 
 
 def test_app_device_cuda_needs_cuda():

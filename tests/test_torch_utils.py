@@ -70,6 +70,6 @@ def test_viewer_spec_errors():
     with pytest.raises(ValueError):
         t_parse("ascii:f:nosuchformat")
     opts = TOptions.from_argv(["-v", "cgns:f.cgns"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh"):  # a CGNS viewer needs the mesh
         create_viewer_from_options(opts, "v")
     assert create_viewer_from_options(opts, "absent") is None
