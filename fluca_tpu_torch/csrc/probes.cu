@@ -27,21 +27,16 @@
 //   N1-1 and column 0 / N2-1 taken from the edge inputs le1/re1/le2/re2
 //   (the reference's roll patches) and the axis-0 neighbours read in
 //   place (wrapping where axis 0 is periodic); NOROLL, the same with the
-//   in-plane neighbours read as the centre value before the edge
-//   replacement; NOCOMP, p * 1.0000001f. REBUILT shares csrc/poisson3d.cu's
-//   arithmetic (stencil_common.cuh poisson3d_axis, poisson3d_sp), so with
-//   true edges it equals the poisson3d apply. On this card "the same
-//   DMAs, no math" cannot be had: the compiler drops loads whose values
-//   are unused. So NOCOMP is the copy through the variant's launch
-//   geometry (the first poisson3d design's grid and 32x8 blocks, one
-//   thread per cell and plane, its index arithmetic), and NOROLL reads no
-//   in-plane neighbour of p.
+//   in-plane neighbours read as the centre value (the edges stay);
+//   NOCOMP, p * 1.0000001f. The probe splits the time of the kernel the
+//   step runs into its parts, so each mode is an instance of that kernel,
+//   poisson3d.cuh's template, with its body stripped (below).
 //
 // What bounds them on an H100: memory traffic. Each reads its input once
 // and writes its output once (the neighbour reads of copy_rolls and
 // REBUILT come from L1/L2), 8 bytes per f32 cell against 1 to 22 flops:
-// at 512x256x256 a field is 134 MB, so a copy moves 268 MB (>= 80 us at
-// 3.35 TB/s).
+// at 512x256x256 a field is 134 MB, so a copy, and a variant, moves 268 MB
+// (>= 80 us at 3.35 TB/s).
 //
 // What the design does about it: copy_scale views its field as R rows
 // (the leading axis) of C elements; a block covers `rows` rows by
@@ -62,7 +57,36 @@
 // 4096^2 with 128 rows, and lost to torch.mul by 12 % there.
 // copy_rolls takes one element per thread and `rows` planes per block,
 // so its two neighbour loads hit lines the block's warps read anyway.
-#include "stencil_common.cuh"
+//
+// poisson3d_variant. What held the first design back: it kept poisson3d's
+// first geometry (one thread per cell, blockIdx.z the plane, 32x8 blocks,
+// branchy neighbour reads) after poisson3d itself became a march, so it
+// took apart a kernel that no step runs: on the H100 its NOCOMP (0.121 ms
+// at 512x256x256) was slower than copy_scale (0.090 ms) and its REBUILT
+// (0.210 ms) slower than the apply it stood for (0.155 ms). What the
+// design does: each mode is poisson3d.cuh's kernel on its unsharded path
+// (a block marches `run` planes of a (rows x 32) tile of the (j, k) plane
+// with planes i-1, i, i+1 in a register ring, axis 0's coefficients
+// staged per plane in shared memory, the in-plane ones in registers, one
+// plane per trip), launched with the grid, block and run that
+// poisson3d_launch_plan picks for the apply at the shape. The in-plane
+// axes are walls: the apply's own resolve-once reads, whose zeros past a
+// wall the edges replace. The blocks at the in-plane walls stage their
+// run's edge values in shared memory beside the coefficients, before the
+// block's one barrier, and the threads of an edge row or column take them
+// from there per plane. REBUILT is the apply's arithmetic
+// (poisson3d_axis, poisson3d_sp), so with true edges (the wrapped planes,
+// or zeros at a wall) it equals the poisson3d apply bit for bit. NOROLL
+// loads no in-plane neighbour of p. NOCOMP stores p * 1.0000001f of the
+// ring's centre plane: the same blocks, march and index arithmetic, no
+// neighbour load. "The same DMAs, no math" cannot be had on this card:
+// the compiler drops loads whose values are unused. Two other ways to
+// the edges ran slower on the H100: as the edge planes of the halo path
+// (a pointer and a step per neighbour, the loop unrolled), and read per
+// plane from the edge arrays in a branch; each took half again the
+// staged version's registers. REBUILT differs from the apply only in its
+// edges, so their cost is the time between the two.
+#include "poisson3d.cuh"
 
 namespace {
 
@@ -141,60 +165,6 @@ copy_rolls_kernel(const float* __restrict__ a, float* __restrict__ o, int N0,
     }
 }
 
-enum VariantMode : int { kRebuilt = 0, kNoRoll = 1, kNoComp = 2 };
-
-// le1/re1: (N0, N2) planes for rows 0 / N1-1; le2/re2: (N0, N1) for
-// columns 0 / N2-1 (the reference's (N0, 1, N2) and (N0, N1, 1) arrays).
-template <int MODE>
-__global__ void __launch_bounds__(fluca::kBlockX * fluca::kBlockY)
-poisson3d_variant_kernel(const float* __restrict__ p,
-                         const float* __restrict__ a0,
-                         const float* __restrict__ c1,
-                         const float* __restrict__ c2,
-                         const float* __restrict__ h0,
-                         const float* __restrict__ h1,
-                         const float* __restrict__ h2,
-                         const float* __restrict__ le1,
-                         const float* __restrict__ re1,
-                         const float* __restrict__ le2,
-                         const float* __restrict__ re2, float* __restrict__ out,
-                         int N0, int N1, int N2, int per0) {
-    const int k = blockIdx.x * blockDim.x + threadIdx.x;
-    const int j = blockIdx.y * blockDim.y + threadIdx.y;
-    const int i = blockIdx.z;
-    if (j >= N1 || k >= N2) return;
-    const size_t idx = ((size_t)i * N1 + j) * N2 + k;
-    const float pc = __ldg(p + idx);
-    if (MODE == kNoComp) {
-        out[idx] = scaled(pc);
-        return;
-    }
-    const float up = fluca::load3d(p, i - 1, j, k, N0, N1, N2, per0, 0, 0);
-    const float dn = fluca::load3d(p, i + 1, j, k, N0, N1, N2, per0, 0, 0);
-    const size_t row = (size_t)i * N2 + k;  // le1/re1
-    const size_t col = (size_t)i * N1 + j;  // le2/re2
-    float left, right, fwd, bwd;
-    if (MODE == kRebuilt) {
-        left = j == 0 ? __ldg(le1 + row) : __ldg(p + idx - N2);
-        right = j == N1 - 1 ? __ldg(re1 + row) : __ldg(p + idx + N2);
-        fwd = k == 0 ? __ldg(le2 + col) : __ldg(p + idx - 1);
-        bwd = k == N2 - 1 ? __ldg(re2 + col) : __ldg(p + idx + 1);
-    } else {
-        left = j == 0 ? __ldg(le1 + row) : pc;
-        right = j == N1 - 1 ? __ldg(re1 + row) : pc;
-        fwd = k == 0 ? __ldg(le2 + col) : pc;
-        bwd = k == N2 - 1 ? __ldg(re2 + col) : pc;
-    }
-    const float s0 = fluca::poisson3d_axis(__ldg(a0 + i), __ldg(a0 + N0 + i),
-                                           __ldg(a0 + 2 * N0 + i), up, pc, dn);
-    const float s1 = fluca::poisson3d_axis(__ldg(c1 + j), __ldg(c1 + N1 + j),
-                                           __ldg(c1 + 2 * N1 + j), left, pc, right);
-    const float s2 = fluca::poisson3d_axis(__ldg(c2 + k), __ldg(c2 + N2 + k),
-                                           __ldg(c2 + 2 * N2 + k), fwd, pc, bwd);
-    out[idx] = fluca::poisson3d_sp(s0, s1, s2, __ldg(h0 + i), __ldg(h1 + j),
-                                   __ldg(h2 + k));
-}
-
 }  // namespace
 
 // a0 o0 [a1 o1]: npairs (1 or 2) pairs of R x C floats; vec 4 takes
@@ -246,34 +216,44 @@ extern "C" int fluca_copy_rolls_f32(const void* a, void* o, int N0, int N1,
     return (int)cudaGetLastError();
 }
 
-// ptrs: p a0 c1 c2 h0 h1 h2 le1 re1 le2 re2 out
-extern "C" int fluca_poisson3d_variant_f32(int mode, const void* const* ptrs,
-                                           int N0, int N1, int N2, int per0,
-                                           void* stream) {
-    const float* f[11];
-    for (int m = 0; m < 11; ++m) f[m] = static_cast<const float*>(ptrs[m]);
-    float* O = static_cast<float*>(const_cast<void*>(ptrs[11]));
-    const dim3 block(fluca::kBlockX, fluca::kBlockY);
-    const dim3 grid = fluca::grid3d(N0, N1, N2);
-    if (grid.y > fluca::kMaxGridYZ || grid.z > fluca::kMaxGridYZ)
-        return (int)cudaErrorInvalidConfiguration;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLUCA_VARIANT_ARGS                                                    \
-    f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10], O, N0, \
-        N1, N2, per0
+// ptrs: p a0 c1 c2 h0 h1 h2 le1 re1 le2 re2 out; mode: 0 REBUILT, 1
+// NOROLL, 2 NOCOMP (poisson3d.cuh's Strip); plan: the apply's at this
+// shape (fluca_tpu_torch.ops.cuda_stencil.poisson3d_launch_plan), checked
+// against it by launch.
+extern "C" int fluca_poisson3d_variant_f32(int mode, const void* const* ptrs, int N0, int N1,
+                                           int N2, int per0, const int* plan, void* stream) {
+    Args<float> h = {};
+    h.p.x = static_cast<const float*>(ptrs[0]);
+    for (int a = 0; a < 3; ++a) {
+        h.band[a] = static_cast<const float*>(ptrs[1 + a]);
+        h.h[a] = static_cast<const float*>(ptrs[4 + a]);
+    }
+    // the edges, as the edge planes of axes 1 and 2 (le1/re1 (N0, 1, N2),
+    // le2/re2 (N0, N1, 1)); the in-plane axes are walls, whose zero reads
+    // the staged edges replace
+    for (int a = 1; a < 3; ++a) {
+        h.p.lo[a] = static_cast<const float*>(ptrs[5 + 2 * a]);
+        h.p.hi[a] = static_cast<const float*>(ptrs[6 + 2 * a]);
+    }
+    h.out = static_cast<float*>(const_cast<void*>(ptrs[11]));
+    fluca::HaloGeom<3>& g = h.g;
+    const int N[3] = {N0, N1, N2};
+    for (int a = 0; a < 3; ++a) g.n[a] = g.ng[a] = N[a];
+    g.mode[0] = per0 ? fluca::kPeriodic : fluca::kWall;
+    g.mode[1] = g.mode[2] = fluca::kWall;
+    g.st[0] = (long long)N1 * N2;
+    g.st[1] = N2;
+    g.st[2] = 1;
+    g.est[1][0] = N2;  // le1[i, 0, k] at i * N2 + k
+    g.est[2][0] = N1;  // le2[i, j, 0] at i * N1 + j
     switch (mode) {
         case kRebuilt:
-            poisson3d_variant_kernel<kRebuilt><<<grid, block, 0, s>>>(FLUCA_VARIANT_ARGS);
-            break;
+            return launch<float, false, kRebuilt>(0, h, plan, stream);
         case kNoRoll:
-            poisson3d_variant_kernel<kNoRoll><<<grid, block, 0, s>>>(FLUCA_VARIANT_ARGS);
-            break;
+            return launch<float, false, kNoRoll>(0, h, plan, stream);
         case kNoComp:
-            poisson3d_variant_kernel<kNoComp><<<grid, block, 0, s>>>(FLUCA_VARIANT_ARGS);
-            break;
+            return launch<float, false, kNoComp>(0, h, plan, stream);
         default:
             return (int)cudaErrorInvalidValue;
     }
-#undef FLUCA_VARIANT_ARGS
-    return (int)cudaGetLastError();
 }

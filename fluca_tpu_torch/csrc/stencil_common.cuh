@@ -9,17 +9,17 @@
 // - Pack<T, VEC> (VEC cells read or written as one access) and Lane2D /
 //   Rows2D (the lanes, columns and rows of a 2-D march): poisson2d.cu and
 //   momentum2d.cu;
-// - load3d (the wrap or zero decided per load by in_axis): probes.cu's
-//   poisson3d_variant, which keeps the first poisson3d design on purpose;
-// - poisson3d_axis/poisson3d_sp: poisson3d.cu and probes.cu;
+// - poisson3d_axis/poisson3d_sp: poisson3d.cuh (poisson3d.cu and
+//   probes.cu);
 // - plane_coeffs (4 staged values of a row or plane): poisson2d.cu and
-//   poisson3d.cu;
-// - kBlockX/kBlockY, grid3d: probes.cu's poisson3d_variant;
-// - HaloGeom, HaloField: the *_halo kernels; halo_load: momentum3d.cu's
-//   +-2 reads (wall rows only);
+//   poisson3d.cuh;
+// - kMaxGridYZ: probes.cu's copies;
+// - HaloGeom, HaloField: the *_halo kernels and probes.cu's
+//   poisson3d_variant; halo_load: momentum3d.cu's +-2 reads (wall rows
+//   only);
 // - Where/Nb/resolve (an in-plane neighbour's wrap, zero or edge plane
-//   resolved once per thread, not per load as load3d does): momentum3d.cu
-//   and poisson3d.cu;
+//   resolved once per thread, not per load): momentum3d.cu and
+//   poisson3d.cuh;
 // - mad (a fused multiply-add whatever the context): every kernel but
 //   probes.cu's copies and poisson2d.cu; mul, add, sub (one rounding
 //   each, never contracted): poisson2d.cu.
@@ -96,32 +96,11 @@ __device__ __forceinline__ int wrap_index(int k, int n) {
     return k < 0 ? k + n : k;
 }
 
-// Brings k into [0, n) on a periodic axis; false when k lies outside
-// a non-periodic one (the read is then 0).
-__device__ __forceinline__ bool in_axis(int& k, int n, int per) {
-    if (k >= 0 && k < n) return true;
-    if (!per) return false;
-    k = wrap_index(k, n);
-    return true;
-}
-
-// A neighbour read of a field, in the type the kernel computes in.
-template <typename T>
-__device__ __forceinline__ acc_t<T> load3d(const T* __restrict__ x, int i,
-                                           int j, int k, int N0, int N1,
-                                           int N2, int per0, int per1,
-                                           int per2) {
-    if (!in_axis(i, N0, per0) || !in_axis(j, N1, per1) ||
-        !in_axis(k, N2, per2))
-        return acc_t<T>(0);
-    return Field<T>::load(x + ((size_t)i * N1 + j) * N2 + k);
-}
-
-// The arithmetic of the 3-D Poisson apply, shared by csrc/poisson3d.cu
-// (its unsharded and halo instances) and csrc/probes.cu (the stripped
-// variants), so that they round alike whatever the code around them: one
-// axis' sum bm xm + bc xc + bp xp of the three band values at an index,
-// and Sp = H1[j] H2[k] s0 + H0[i] (H2[k] s1 + H1[j] s2), each a chain of
+// The arithmetic of the 3-D Poisson apply, shared by the instances of
+// csrc/poisson3d.cuh's kernel (poisson3d.cu's unsharded and halo ones,
+// probes.cu's variants), so that they round alike whatever the code
+// around them: one axis' sum bm xm + bc xc + bp xp of the three band
+// values at an index, and Sp = H1[j] H2[k] s0 + H0[i] (H2[k] s1 + H1[j] s2), each a chain of
 // explicit fused multiply-adds. The order is the one nvcc chose for the
 // first design's expressions (b0 xm + b1 xc + b2 xp and
 // hj hk s0 + h0 (hk s1 + hj s2), contracted), so the redesigned kernel
@@ -136,18 +115,8 @@ __device__ __forceinline__ C poisson3d_sp(C s0, C s1, C s2, C h0, C hj, C hk) {
     return mad(hj * hk, s0, h0 * mad(hj, s2, hk * s1));
 }
 
-// The first 3-D design's geometry, kept by probes.cu's poisson3d_variant:
-// one thread per cell, the contiguous axis along threadIdx.x so a warp
-// reads 32 neighbouring addresses; the block covers a kBlockY x kBlockX
-// patch of one (j, k) plane and blockIdx.z is the plane index i.
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
+// The CUDA grid's y and z extents.
 constexpr int kMaxGridYZ = 65535;
-
-inline dim3 grid3d(int N0, int N1, int N2) {
-    return dim3((N2 + kBlockX - 1) / kBlockX, (N1 + kBlockY - 1) / kBlockY,
-                N0);
-}
 
 // ---------------------------------------------------------------------
 // Halo instances: one shard's block of a domain-decomposed grid

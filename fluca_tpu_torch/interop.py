@@ -1,15 +1,19 @@
-"""NS state between numpy and torch.
+"""NS state and FD operators between numpy and torch.
 
 The state dict {"v": tuple, "U": tuple, "p", "phalf"} is what weights
 are to a model. These helpers carry a state held as numpy arrays (for
 instance one taken from the JAX package mid-run) onto a device and
-back, so two implementations can continue from the same state.
+back, so two implementations can continue from the same state. An FD
+operator carries across as its host bands (``stencil_op_from_numpy``),
+so two implementations can apply the same operator.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from fluca_tpu_torch.ops.fd import StencilOp
 
 _TUPLE_FIELDS = ("v", "U")
 _FIELDS = ("v", "U", "p", "phalf")
@@ -44,3 +48,18 @@ def state_to_numpy(state) -> dict:
         else:
             out[k] = leaf(state[k])
     return out
+
+
+def stencil_op_from_numpy(mesh, bands, const, in_stag, out_stag, device, dtype):
+    """A port StencilOp (fluca_tpu_torch.ops.fd) on ``mesh`` from an
+    operator's bands held as numpy arrays ({offset tuple: array of the
+    output shape}, for instance a fluca_tpu operator's ``np.asarray``'d
+    bands) and its constant; the bands are kept in float64 on the host
+    and moved once to ``device`` in ``dtype``. ``mesh`` is the port's
+    mesh of the same grid."""
+    op = StencilOp(mesh, tuple(bool(s) for s in in_stag), tuple(bool(s) for s in out_stag),
+                   {tuple(int(o) for o in off): np.array(w, dtype=np.float64)
+                    for off, w in bands.items()},
+                   np.array(const, dtype=np.float64))
+    op.device_arrays(device, dtype)
+    return op

@@ -75,11 +75,17 @@ class CNLinearConfig:
     mom_maxiter: int = 100
     schur_rtol: float = 1e-5    # kspS (abf_schur_)
     schur_maxiter: int = 200
+    mg_levels: bool = True
     # Atilde approximations in the ABF factorization
     # (-pc_abf_schur_ainv_type / -pc_abf_upper_ainv_type,
     # abfpc.c:240-252); 'id' is the fractional-step limit
     schur_ainv: str = "id"      # id | diag | rowsum
     upper_ainv: str = "id"
+    # warm-start the coupled solve from the old velocity state
+    # (reference uses a zero initial guess, nsbasic.c:247-251; this
+    # changes only the iteration count, not the converged solution).
+    # Only the tolerance (FGMRES) outer takes it.
+    warm_start: bool = False
     # "coupled": iterate the outer solver on the full saddle system.
     # "fsm": one ABF pass with Atilde = I, the classical
     # fractional-step method (O(dt) splitting error with this
@@ -107,6 +113,11 @@ class CNLinearConfig:
     # which inner solves run in precond_dtype: "both", or "mom" (the
     # Schur solve stays in the solver dtype)
     precond_scope: str = "both"
+    # report ||rhs|| in the step diagnostics so an achieved relative
+    # tolerance (reference semantics: KSP rtol on the unpreconditioned
+    # norm, nssol.c:24-25) can be formed as ksp_rnorm / rhs_norm.
+    # Off by default: it adds one full-tree reduction per step.
+    diag_rhs_norm: bool = False
 
     @classmethod
     def production(cls, outer=3, mom=8, schur=6):
@@ -574,8 +585,10 @@ class CNLinearSolver:
         return {"v": momrhs, "U": interprhs, "p": contrhs}
 
     # -- one time step -------------------------------------------------
-    def _outer_solve(self, rhs, Acoeffs, diagA, pre=None) -> KrylovResult:
-        """The coupled solve; ``pre`` is the reduced-precision context."""
+    def _outer_solve(self, rhs, Acoeffs, diagA, pre=None, x0=None) -> KrylovResult:
+        """The coupled solve; ``pre`` is the reduced-precision context,
+        ``x0`` the FGMRES outer's initial guess (the fixed-budget outers
+        start from zero)."""
         cfg = self.cfg
 
         def A(x):
@@ -622,7 +635,7 @@ class CNLinearSolver:
             )
         if cfg.outer_type != "fgmres":
             raise ValueError(f"unknown outer solver {cfg.outer_type!r}")
-        return fgmres(A, rhs, rtol=cfg.rtol, restart=cfg.restart,
+        return fgmres(A, rhs, x0=x0, rtol=cfg.rtol, restart=cfg.restart,
                       maxiter=cfg.maxiter, M=M)
 
     def _step_impl(self, state, t, is_first_step: bool):
@@ -648,7 +661,12 @@ class CNLinearSolver:
         diagA = ops.diag_A(U0, v0f)
         Acoeffs = ops.build_momentum_operator(U0, v0f)
         pre = self._precond_ctx(Acoeffs, diagA, U0, v0f)
-        res = self._outer_solve(rhs, Acoeffs, diagA, pre)
+        x0 = None
+        if self.cfg.warm_start:
+            # start from the old velocities and a zero pressure increment
+            x0 = {"v": tuple(sol0["v"]), "U": tuple(U0),
+                  "p": torch.zeros_like(sol0["p"])}
+        res = self._outer_solve(rhs, Acoeffs, diagA, pre, x0)
         x = res.x
         dp = self._project_p(x["p"])
 
@@ -674,6 +692,8 @@ class CNLinearSolver:
             "ksp_rnorm": res.rnorm,
             "converged": converged,
         }
+        if self.cfg.diag_rhs_norm:
+            diag["rhs_norm"] = tree_norm(rhs)
         return new_state, diag
 
     def step(self, state, t, step_index: int):

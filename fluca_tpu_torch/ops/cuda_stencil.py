@@ -69,7 +69,7 @@ from fluca_tpu_torch.parallel.mesh import DeviceGrid
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("poisson2d.cu", "momentum2d.cu", "poisson3d.cu", "momentum3d.cu",
            "chain3d.cu", "probes.cu")
-HEADERS = ("stencil_common.cuh",)
+HEADERS = ("stencil_common.cuh", "poisson3d.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",

@@ -38,8 +38,8 @@ import torch
 
 from fluca_tpu_torch.ops.banded import broadcast_1d, shifted
 from fluca_tpu_torch.ops.cuda_stencil import (
-    _MAX_PLANES, _MAX_ROWS, Poisson3DCoeffs, _check_tensors, _Kernel, _launch_target,
-    _poisson3d, _stream_ptr, _upcast,
+    Poisson3DCoeffs, _check_tensors, _Kernel, _launch_target, _poisson3d, _stream_ptr,
+    _upcast, poisson3d_launch_plan,
 )
 
 SCALE = 1.0000001
@@ -257,18 +257,27 @@ def poisson3d_variant_plain(mode, p, c: Poisson3DCoeffs, edges):
     return _poisson3d("apply", p, c, None, None, 0.0, sh).to(out_dtype)
 
 
+def variant_launch_plan(shape):
+    """The launch of ``poisson3d_variant`` at ``shape``: the Poisson 3-D
+    apply's (grid, block rows, run and shared memory of
+    ``poisson3d_launch_plan`` for float32 fields), so that each mode is
+    the step's kernel with its body stripped."""
+    return poisson3d_launch_plan(tuple(shape), torch.float32)
+
+
 class Poisson3DVariantKernel(_Kernel):
     """Wrapper of the stripped 3-D Poisson apply (csrc/probes.cu
-    poisson3d_variant_kernel): ``poisson3d_variant(mode, p, coeffs,
-    edges)`` with ``edges`` = (le1, re1, le2, re2) of
-    ``variant_edge_shapes``; every mode takes every input, as the
-    reference's variants do. The ledger keys a launch by (shape, (mode,
+    fluca_poisson3d_variant_f32, instances of csrc/poisson3d.cuh's
+    kernel): ``poisson3d_variant(mode, p, coeffs, edges)`` with ``edges``
+    = (le1, re1, le2, re2) of ``variant_edge_shapes``; every mode takes
+    every input, as the reference's variants do. Launched with
+    ``variant_launch_plan``. The ledger keys a launch by (shape, (mode,
     axis-0 periodicity))."""
 
     name = "poisson3d_variant"
     source = "probes.cu"
     instances = ("f32",)
-    argtypes = [_CI, ctypes.POINTER(_VP), _CI, _CI, _CI, _CI, _VP]
+    argtypes = [_CI, ctypes.POINTER(_VP), _CI, _CI, _CI, _CI, ctypes.POINTER(_CI), _VP]
 
     def __call__(self, mode, p, c: Poisson3DCoeffs, edges):
         if mode not in VARIANT_MODES:
@@ -286,14 +295,13 @@ class Poisson3DVariantKernel(_Kernel):
             return poisson3d_variant_plain(mode, p, c, edges)
         _check_f32(self.name, p)
         N0, N1, N2 = p.shape
-        if 0 in p.shape or N0 > _MAX_PLANES or N1 > _MAX_ROWS:
-            raise ValueError(f"{self.name}: unsupported shape {tuple(p.shape)}")
+        plan = variant_launch_plan(p.shape)
         out = torch.empty_like(p)
         tensors = (p, c.a0, c.c1, c.c2, c.h0, c.h1, c.h2, *edges, out)
         ptrs = (_VP * len(tensors))(*(t.data_ptr() for t in tensors))
         self._launch(torch.float32, ((N0, N1, N2), (mode, c.periodic[0])),
                      VARIANT_MODES[mode], ptrs, N0, N1, N2, int(c.periodic[0]),
-                     _stream_ptr(p))
+                     plan.as_c(), _stream_ptr(p))
         return out
 
 

@@ -413,8 +413,10 @@ def test_poisson3d_launch_plan_refuses_what_cannot_fit(shape):
 def test_poisson3d_source_exports_every_instance():
     """csrc/poisson3d.cu exports one C entry point per instance of the
     unsharded and the halo wrappers, each taking the launch plan; the
-    instances are one kernel template."""
+    instances are one kernel template, in poisson3d.cuh (which probes.cu's
+    stripped variants instantiate too)."""
     src = (cuda_stencil.CSRC_DIR / "poisson3d.cu").read_text()
+    template = (cuda_stencil.CSRC_DIR / "poisson3d.cuh").read_text()
     exported = set(re.findall(r'^\s*extern "C" int fluca_(\w+)##SFX\(', src, re.M))
     instances = set(re.findall(r"^FLUCA_POISSON3D(_HALO)?_EXPORT\((\w+),", src, re.M))
     names = {f"poisson3d{'_halo' if halo else ''}_{sfx}" for halo, sfx in instances}
@@ -424,5 +426,7 @@ def test_poisson3d_source_exports_every_instance():
     assert {k.source for k in kernels} == {"poisson3d.cu"}
     assert "poisson3d.cu" in cuda_stencil.SOURCES
     assert all(ctypes.POINTER(ctypes.c_int) in k.argtypes for k in kernels)
-    assert len(re.findall(r"__global__", src)) == 1
-    assert "load3d" not in src
+    assert '#include "poisson3d.cuh"' in src and "poisson3d.cuh" in cuda_stencil.HEADERS
+    assert len(re.findall(r"__global__", src)) == 0
+    assert len(re.findall(r"__global__", template)) == 1
+    assert "load3d" not in src + template

@@ -18,6 +18,7 @@ numpy from a seed and handed to both. Tolerances:
   or coefficient shows at 1e-3 or more); max abs 0 for ``nocomp``.
 """
 
+import ctypes
 import importlib.util
 import re
 from pathlib import Path
@@ -234,6 +235,24 @@ def test_variant_rebuilt_with_true_edges_is_the_apply(periodic):
     zeros = tuple(torch.zeros(s, dtype=F64) for s in probes.variant_edge_shapes(shape))
     zero_edged = probes.poisson3d_variant_plain("rebuilt", p, c, zeros)
     assert torch.equal(zero_edged, got) == (not (periodic[1] or periodic[2]))
+
+
+@pytest.mark.parametrize("shape", [(512, 256, 256), (256, 256, 256), (128, 128, 128),
+                                   (12, 6, 10)])
+def test_variant_launches_with_the_apply_plan(shape):
+    """The stripped variants launch with the grid, block rows, run and
+    shared memory that the Poisson 3-D apply takes at the shape, and the
+    source builds them from the apply's kernel template (no kernel of
+    their own)."""
+    plan = probes.variant_launch_plan(shape)
+    assert plan == cuda_stencil.poisson3d_launch_plan(shape, torch.float32)
+    assert ctypes.POINTER(ctypes.c_int) in probes.poisson3d_variant.argtypes
+    src = (cuda_stencil.CSRC_DIR / "probes.cu").read_text()
+    assert '#include "poisson3d.cuh"' in src
+    assert "poisson3d_variant_kernel" not in src and "load3d" not in src
+    for strip in ("kRebuilt", "kNoRoll", "kNoComp"):
+        assert f"case {strip}:" in src
+    assert [probes.VARIANT_MODES[m] for m in ("rebuilt", "noroll", "nocomp")] == [0, 1, 2]
 
 
 # ----------------------------------------------------------------------
