@@ -110,6 +110,26 @@ Phases:
      (SHARDED_RTOL); two planted edge-plane faults that both comparisons
      must catch; the apps with -parallel_grid 2x2 (64^2) and 2x2x2 (32^3);
      the halo instances timed beside the unsharded kernels;
+ 10b. ranks: the multi-process step (parallel/distributed.py, RankGrid),
+     one block per torch.distributed rank, each rank a child process of
+     this script (--rank) on the one card under gloo, its edge planes
+     staged through pinned host buffers; the parent builds the kernels
+     first and the ranks only load them; each rank builds its solver and
+     state on its block from the start (NS(grid=)). RANK_CASES: the 256^2
+     cavity on (4, 2) (8 ranks, 6 steps, production()) in f64 against the
+     one-process run of the same steps (SHARDED_RTOL) and in f32 within
+     SPREAD_FACTOR x that run's distance from itself with its dots summed
+     over 8 row blocks; the 64^3 channel on (2, 2, 2) (8 ranks, 4 steps,
+     f64 production()) at SHARDED_RTOL; BASELINE #5 on (2, 1, 1) (f32
+     production(3, 8, 6)): its first step within SPREAD_FACTOR x the
+     one-process step's one-rounding spread, 3 steps under the retention
+     gate. Every rank holds its kernel calls against the
+     one-card sharded calls on the gathered fields (max abs 0) and their
+     plain versions, and sends back its launches and ledger keys, merged
+     into the ledger; a planted edge-plane fault on every rank must be
+     caught; steps/s, exchange ms and bytes per step and peak memory per
+     rank (building and stepping) are printed beside the one-process
+     run's;
  11. probes: the bench and probe entry points (fluca_tpu_torch/bench.py,
      fluca_tpu_torch/examples/) and their kernels (ops/probes.py,
      csrc/probes.cu): copy_scale and copy_rolls against their plain
@@ -2705,6 +2725,518 @@ def phase_sharded(smi, entries, profile=False):
 
 
 # ----------------------------------------------------------------------
+# the multi-process step: one block per torch.distributed rank
+# ----------------------------------------------------------------------
+
+# The cells phase_ranks runs: the model and its dtype, the rank grid, the
+# steps, and how the ranks' state is held against the one-process run of
+# the same steps:
+# - "tight" (float64): at SHARDED_RTOL. The two runs differ in the order of
+#   the sums added over the ranks only, ~1e-14 after 21 steps of the 256^2
+#   cavity (my CPU run, scratch reorder check);
+# - "spread" (float32): within SPREAD_FACTOR times the one-process run's
+#   own distance from a run whose dots sum over 8 row blocks (the same
+#   steps, another order of the same sums), read in the same call. The
+#   fixed-budget production solve of the 256^2 cavity is far from
+#   converged, and in float32 such a reordering alone moves it by 1.0e-3
+#   (v) and 5.2e-3 (p) after 21 steps on the CPU (the 8 ranks moved it by
+#   1.4e-4 and 5.4e-4), far above SHARDED_RTOL, which phase_sharded meets
+#   only because its sums are the unsharded ones. The ranks' order is
+#   another draw of that size (at 64^2 on the CPU: 6.8e-7 against a
+#   spread of 6.6e-7 in p), hence the factor;
+# - "first" (float32, BASELINE #5): the first step within SPREAD_FACTOR
+#   times the one-process step's one-rounding spread (field_dists, as
+#   phase_chain_ab measures the 128^3 channel's: v moved by one rounding,
+#   and here also the dots summed over 8 row blocks, the larger of the
+#   two), then the retention gate over the steps. On a 32x16x16 cut of
+#   the channel on the CPU the ranks moved the first step by 1.28e-7 (v)
+#   against a one-rounding spread of 8.7e-8.
+#
+# The steps are cut to what 8 ranks on one card get through in about a
+# minute: every edge plane and sum is a device-host round trip, and 8
+# processes time-slice the card, so the 256^2 cavity steps at 0.145 steps/s
+# on (4, 2) and the 64^3 channel at 0.097 (H100 80GB HBM3, 700 W, my chip
+# run, PR 14); at 21 and 11 steps the phase took 515 s.
+RANK_CASES = {
+    "cavity32": dict(label="cavity 256^2 Re 100 f32 production", grid=(4, 2), steps=6,
+                     check="spread"),
+    "cavity64": dict(label="cavity 256^2 Re 100 f64 production", grid=(4, 2), steps=6,
+                     check="tight"),
+    "channel64": dict(label="channel 64^3 dt 2e-3 f64 production", grid=(2, 2, 2),
+                      steps=4, check="tight"),
+    "channel512": dict(label="channel 512x256x256 stretch_y 2.0 dt 5e-5 f32 "
+                       "production(3, 8, 6)", grid=(2, 1, 1), steps=3, check="first"),
+}
+RANK_TIMEOUT_S = 600
+SPREAD_FACTOR = 4.0
+
+
+def rank_model(case, grid=None):
+    """The solver of ``case``: the one-process one, or with ``grid`` (a
+    rank-held grid) built on this rank's block from the start."""
+    f64 = torch.float64
+    if case.startswith("cavity"):
+        ns = setup_cavity_2d(N=256, Re=100.0, dt=0.01, device="cuda",
+                             dtype=f64 if case == "cavity64" else None, grid=grid)
+        ns.impl.cfg = CNLinearConfig.production()
+    elif case == "channel64":
+        ns = setup_channel_3d(N=(64, 64, 64), dt=2e-3, device="cuda", dtype=f64, grid=grid)
+        ns.impl.cfg = CNLinearConfig.production()
+    else:
+        ns = setup_channel_3d(N=BASELINE5, dt=5e-5, stretch_y=2.0, device="cuda", grid=grid)
+        ns.impl.cfg = CNLinearConfig.production(3, 8, 6)
+    return ns
+
+
+def blocked_dot(nblocks):
+    """``tree_dot`` with each leaf's sum taken over ``nblocks`` row blocks
+    and the partial sums added in order: the same sums in another order."""
+    from fluca_tpu_torch.solvers.krylov import tree_dot, tree_leaves
+
+    def dot(a, b):
+        tot = None
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            parts = [tree_dot(p, q) for p, q in zip(x.chunk(nblocks, 0), y.chunk(nblocks, 0))]
+            d = parts[0]
+            for q in parts[1:]:
+                d = d + q
+            tot = d if tot is None else tot + d
+        return tot
+
+    return dot
+
+
+def mean_abs_u(ns) -> float:
+    """mean |u| over the grid (summed over the ranks where rank-held)."""
+    u = ns.state["v"][0]
+    s = torch.stack([u.abs().double().sum(), torch.tensor(float(u.numel()), device=u.device,
+                                                           dtype=torch.float64)])
+    if ns.impl.rank_held:
+        s = ns.device_grid.allsum(s)
+    return float(s[0] / s[1])
+
+
+def state_leaves(state):
+    """(name, tensor, face axis or None) for every state field."""
+    out = [(f"v{c}", x, None) for c, x in enumerate(state["v"])]
+    out += [(f"U{d}", x, d) for d, x in enumerate(state["U"])]
+    return out + [("p", state["p"], None), ("phalf", state["phalf"], None)]
+
+
+def rank_state_errors(ns, ref, vol=None):
+    """||a - b|| / ||b|| over v, over U and over p (with ``vol``: p less its
+    volume-weighted mean, as field_dists takes it), and the max abs
+    differences, of this rank's state against its block of the whole
+    state ``ref`` (CPU tensors), summed over the ranks."""
+    grid = ns.device_grid
+    blk = grid.block(ns.mesh.N, ns.mesh.periodic)
+    whole = {name: (x, face) for name, x, face in state_leaves(ref)}
+    groups = {"v": [], "U": [], "p": []}
+    for name, x, face in state_leaves(ns.state):
+        if name != "phalf":
+            b = blk.cut(whole[name][0], face).to(x.device)
+            groups[name[0]].append((x.double(), b.double()))
+    if vol is not None:
+        a, b = groups["p"][0]
+        v = blk.cut(vol).to(a.device, torch.float64)
+        m = grid.allsum(torch.stack([torch.sum(v * a), torch.sum(v * b), torch.sum(v)]))
+        groups["p"] = [(a - m[0] / m[2], b - m[1] / m[2])]
+    sums, maxes = [], []
+    for k in ("v", "U", "p"):
+        sums.append(sum(torch.sum((a - b) ** 2) for a, b in groups[k]))
+        sums.append(sum(torch.sum(b ** 2) for _, b in groups[k]))
+        maxes.append(max((a - b).abs().max() for a, b in groups[k]))
+    tot = grid.allsum(torch.stack(sums))
+    mx = torch.stack(grid.transport.all_gather(torch.stack(maxes))).max(0).values
+    return ({k: float((tot[2 * i] / tot[2 * i + 1]) ** 0.5) for i, k in enumerate("vUp")},
+            {k: float(mx[i]) for i, k in enumerate("vUp")})
+
+
+def planted_rank_fault(ns):
+    """Zero one received edge plane of the finest level's Poisson apply
+    on every rank (along axis 0: the plane from the high neighbour, or on
+    the last rank the one from the low neighbour) and run it: the result
+    must part from the plain version on the true planes and from the
+    one-card sharded call's box. Returns this rank's readings."""
+    from fluca_tpu_torch.parallel.mesh import DeviceGrid
+
+    impl, grid = ns.impl, ns.device_grid
+    lvl = impl.mg.levels[0]
+    f = lvl.sharded["apply"]
+    gen = torch.Generator(device="cpu").manual_seed(31 + grid.rank)
+    p = torch.randn(lvl.shape, generator=gen).to("cuda", impl.dtype)
+    edges = f.edges(p)
+    side = 1 if grid.coords[0] < grid.shape[0] - 1 else 0
+    bad = [None if e is None else [t.clone() for t in e] for e in edges]
+    bad[0][side].zero_()
+    got = f.launch(p, bad)
+    plain = f.kernel._plain("apply", p, lvl.coeffs, f.layout, edges)
+    pg = grid.gather(p, lvl.mesh.N, lvl.mesh.periodic)
+    glvl = mg_mod._build_level(lvl.mesh, impl.ops.axbcs, impl.dt / impl.rho, impl.dtype,
+                               "cuda")
+    one = build_poisson_sharded(DeviceGrid(grid.shape, (torch.device("cuda"),) * grid.size),
+                                glvl, "apply", impl.mg.omega)
+    box = lvl.block.cut(one(pg))
+    torch.cuda.synchronize()
+    return {"rel_vs_plain": rel_err(got, plain), "max_abs_vs_one_card": max_abs(got, box)}
+
+
+def all_launches():
+    """Each kernel's launches since the last reset, all instances."""
+    return {k.name: k.launches for k in cuda_stencil.KERNELS}
+
+
+def rank_main(args) -> int:
+    """One rank of phase_ranks: join the gloo group on cuda:0 (ranks that
+    share one card), load the library the parent built, run the case
+    sharded over the rank grid with the counts at 0, hold the state
+    against the parent's one-process run, check every kernel call, and
+    write this rank's figures to its output file."""
+    from fluca_tpu_torch.parallel import distributed
+    from fluca_tpu_torch.parallel.ranks import rank_kernel_checks
+
+    lib = cuda_stencil.build_dir() / cuda_stencil.source_hash() / cuda_stencil.LIB_NAME
+    if not lib.exists():
+        raise RuntimeError(f"rank {args.rank}: no kernel library at {lib}: the parent "
+                           f"builds it before it starts the ranks")
+    dev = distributed.initialize_distributed(
+        backend="gloo", init_method=f"file://{args.init}", world_size=args.world,
+        rank=args.rank, device="cuda:0", timeout_s=RANK_TIMEOUT_S)
+    transport = distributed.default_transport()
+    print(f"[ranks] rank {args.rank}/{args.world}: backend {transport.backend}, device "
+          f"{dev}, planes staged through pinned host buffers: {transport.staged}",
+          flush=True)
+    spec = RANK_CASES[args.case]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # the solver and its state built on this rank's block from the start
+    ns = rank_model(args.case, make_device_grid(len(spec["grid"]), shape=spec["grid"]))
+    build_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    u0 = mean_abs_u(ns)
+    if not isinstance(ns.impl._stages, UnfusedChain) or ns.impl._pre_resources() is not None \
+            or not ns.impl.rank_held:
+        raise AssertionError(f"{args.case}: the rank-held solver must run UnfusedChain, "
+                             f"bf16 off")
+    ref = torch.load(args.ref, mmap=True, weights_only=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    transport.stats.reset()
+    torch.cuda.synchronize()
+    cuda_stencil.reset_launch_counts()
+    t0 = time.perf_counter()
+    ns.step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = {"rank": args.rank, "coords": list(ns.device_grid.coords),
+           "backend": transport.backend, "device": str(dev)}
+    if spec["check"] == "first":
+        launches = all_launches()
+        xs = transport.stats.as_dict()
+        out["first_errors"], out["first_max_abs"] = rank_state_errors(
+            ns, ref, torch.as_tensor(ns.mesh.cell_volumes()))
+        transport.stats.reset()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ns.advance(spec["steps"] - 1)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, v in all_launches().items():
+            launches[k] += v
+        for k, v in transport.stats.as_dict().items():
+            xs[k] += v
+        adv = (t3 - t2, spec["steps"] - 1)
+    else:
+        t2 = time.perf_counter()
+        ns.advance(spec["steps"] - 1)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = all_launches()
+        xs = transport.stats.as_dict()
+        adv = (t3 - t2, spec["steps"] - 1)
+        out["errors"], out["max_abs"] = rank_state_errors(ns, ref)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["build_peak_gib"] = build_peak
+    if not bool(ns.last_diag["converged"]):
+        raise AssertionError(f"{args.case}: step {ns.step_index} did not converge")
+    assert_finite(ns, f"{args.case} on rank {args.rank}")
+    if spec["check"] == "first":
+        out["retention"] = mean_abs_u(ns) / u0
+    out.update(first_s=t1 - t0, advance_s=adv[0], steps_per_s=adv[1] / adv[0],
+               launches=launches, exchange=xs, steps=spec["steps"],
+               levels=[list(n) for n in ns.impl.mg.sharded_levels])
+    checks = rank_kernel_checks(ns, seed=41)
+    out["checks"] = len(checks)
+    out["max_abs_vs_one_card"] = max(c["max_abs_vs_one_card"] for c in checks)
+    out["max_rel_vs_plain"] = max(c["rel_vs_plain"] for c in checks)
+    if args.case == "cavity32":
+        out["fault"] = planted_rank_fault(ns)
+    out["ledger"] = {k.name: {"launched": sorted(map(repr, k.launched)),
+                              "checked": sorted(map(repr, k.checked))}
+                     for k in cuda_stencil.KERNELS}
+    with open(args.out, "w") as fh:
+        json.dump(out, fh)
+    distributed.finalize_distributed()
+    print(f"[ranks] rank {args.rank}/{args.world}: OK {args.case}", flush=True)
+    return 0
+
+
+def one_process_reference(case, tmp, entries):
+    """The one-process run of ``case``, unchained as the rank-held step
+    runs: the saved state the ranks are held against (after all steps, or
+    after the first for "first"), its steps/s and peak memory; for
+    "first", also the first step's one-rounding spread (field_dists of a
+    run whose initial v is moved by one float32 rounding); for "spread",
+    the run's distance from the same run with its dots summed over 8 row
+    blocks (``blocked_dot``)."""
+    spec = RANK_CASES[case]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ns = rank_model(case)
+    # what building the solver took, less what this process already held
+    build_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    unchain(ns)
+    check_solver_stencils(entries, f"{spec['label']}, one process", ns)
+    torch.cuda.reset_peak_memory_stats()
+    u0 = float(ns.state["v"][0].abs().mean())
+    fig = {}
+    if spec["check"] == "first":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ns.step()
+        torch.cuda.synchronize()
+        fig["first_s"] = time.perf_counter() - t0
+        saved = {k: tuple(x.cpu() for x in ns.state[k]) if isinstance(ns.state[k], tuple)
+                 else ns.state[k].cpu() for k in ("v", "U", "p", "phalf")}
+        t0 = time.perf_counter()
+        ns.advance(spec["steps"] - 1)
+        torch.cuda.synchronize()
+        adv = time.perf_counter() - t0
+        fig["retention"] = float(ns.state["v"][0].abs().mean()) / u0
+    else:
+        fig["first_s"], adv, _ = timed_run(ns, spec["steps"] - 1)
+        saved = {k: tuple(x.cpu() for x in ns.state[k]) if isinstance(ns.state[k], tuple)
+                 else ns.state[k].cpu() for k in ("v", "U", "p", "phalf")}
+    fig.update(steps_per_s=(spec["steps"] - 1) / adv, peak_gib=torch.cuda.max_memory_allocated()
+               / 2**30, build_peak_gib=build_peak)
+    assert_finite(ns, f"{case}, one process")
+    path = os.path.join(tmp, f"{case}.pt")
+    torch.save(saved, path)
+    del ns
+    if spec["check"] != "tight":
+        # the same run one rounding away: v moved by one rounding (the first
+        # step), or the dots summed in another order (all the steps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ns = rank_model(case)
+        unchain(ns)
+        ref = {k: tuple(x.cuda() for x in v) if isinstance(v, tuple) else v.cuda()
+               for k, v in saved.items()}
+        if spec["check"] == "first":
+            eps = torch.finfo(ns.impl.dtype).eps
+            ns.state["v"] = tuple(x * (1.0 + eps) for x in ns.state["v"])
+            ns.step()
+            vol = torch.as_tensor(ns.mesh.cell_volumes(), device="cuda")
+            fig["moved"] = field_dists(ns.state, ref, vol)
+            del ns
+            gc.collect()
+            torch.cuda.empty_cache()
+            ns = rank_model(case)
+            unchain(ns)
+            ns.impl._dot = blocked_dot(8)
+            ns.step()
+            fig["blocked"] = field_dists(ns.state, ref, vol)
+            fig["spread"] = {k: max(fig["moved"][k], fig["blocked"][k]) for k in "vUp"}
+        else:
+            ns.impl._dot = blocked_dot(8)
+            ns.step()
+            ns.advance(spec["steps"] - 1)
+            st = ns.state
+            fig["spread"] = {"v": vec_rel_err(st["v"], ref["v"]),
+                             "U": vec_rel_err(st["U"], ref["U"]),
+                             "p": rel_err(st["p"], ref["p"])}
+        del ns, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path, fig
+
+
+def run_rank_case(case, tmp, ref_path):
+    """Start one process per rank of ``case`` (file:// init, a timeout);
+    kill every rank and fail if any fails or hangs. Returns each rank's
+    figures."""
+    spec = RANK_CASES[case]
+    world = int(np.prod(spec["grid"]))
+    init = os.path.join(tmp, f"{case}.init")
+    env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
+    procs, logs = [], []
+    for r in range(world):
+        log = open(os.path.join(tmp, f"{case}.rank{r}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank", str(r), "--world",
+             str(world), "--init", init, "--case", case, "--ref", ref_path,
+             "--out", os.path.join(tmp, f"{case}.rank{r}.json")],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(REPO)))
+    failed = None
+    try:
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        for r, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                failed = f"rank {r} hung past {RANK_TIMEOUT_S} s"
+                break
+            if rc != 0:
+                failed = f"rank {r} exited {rc}"
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+        tails = []
+        for r, log in enumerate(logs):
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if failed or r == 0:
+                tails.append(f"--- rank {r} ---\n" + text[-4000:])
+        if failed:
+            print("\n".join(tails), flush=True)
+    if failed:
+        raise AssertionError(f"phase_ranks {case}: {failed}")
+    print(tails[0], end="", flush=True)
+    figs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{case}.rank{r}.json")) as fh:
+            figs.append(json.load(fh))
+    return figs
+
+
+def merge_rank_ledger(figs):
+    """Every rank's launched and checked keys into this process's ledger,
+    so that phase_ledger fails on a key no check covered."""
+    import ast
+
+    kernels = {k.name: k for k in cuda_stencil.KERNELS}
+    for f in figs:
+        for name, led in f["ledger"].items():
+            kernels[name].launched |= {ast.literal_eval(k) for k in led["launched"]}
+            kernels[name].checked |= {ast.literal_eval(k) for k in led["checked"]}
+
+
+def phase_ranks(smi, entries):
+    """The multi-process step: one block per torch.distributed rank, the
+    ranks sharing the one card under gloo with their edge planes staged
+    through pinned host buffers. Each case of RANK_CASES against the
+    one-process run of the same steps, by its ``check``: "tight" (f64
+    cavity and 64^3 channel) at SHARDED_RTOL, "spread" (f32 cavity) within
+    SPREAD_FACTOR x the one-process run's distance from itself with its
+    dots summed over 8 row blocks, "first" (BASELINE #5 on (2, 1, 1)) its
+    first step within SPREAD_FACTOR x the one-rounding spread, then its
+    retention gate. Every rank holds its kernel calls against the one-card sharded
+    calls (max abs 0) and their plain versions; one planted edge-plane
+    fault per rank in the cavity must be caught. Returns each case's
+    launches summed over its ranks."""
+    t0 = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=cuda_stencil.build_dir()) as tmp:
+        for case, spec in RANK_CASES.items():
+            ref_path, one = one_process_reference(case, tmp, entries)
+            figs = run_rank_case(case, tmp, ref_path)
+            merge_rank_ledger(figs)
+            label, world = spec["label"], len(figs)
+            tot = {}
+            for f in figs:
+                for k, v in f["launches"].items():
+                    tot[k] = tot.get(k, 0) + v
+            launches[case] = tot
+            names = (("poisson2d_halo", "momentum2d_halo") if len(spec["grid"]) == 2
+                     else ("poisson3d_halo", "momentum3d_halo"))
+            require_launches(tot, names, f"{label} on the ranks")
+            sps = min(f["steps_per_s"] for f in figs)
+            steps = spec["steps"]
+            xs = [f["exchange"] for f in figs]
+            print(f"[ranks] {label} on {spec['grid']} ({world} ranks, gloo, cuda:0; {smi}): "
+                  f"advance({steps - 1}) {sps:.4f} steps/s (slowest rank) against "
+                  f"{one['steps_per_s']:.4f} one process; first step "
+                  f"{max(f['first_s'] for f in figs) * 1e3:.1f} ms against "
+                  f"{one['first_s'] * 1e3:.1f}; levels held {figs[0]['levels']}; launches "
+                  f"per step, all ranks {per_step(tot, steps)}", flush=True)
+            print(f"[ranks] {label}: per rank per step, exchanges "
+                  f"{min(x['exchanges'] for x in xs) / steps:.1f}, "
+                  f"{max(x['exchange_bytes'] for x in xs) / steps / 2**20:.4f} MiB sent "
+                  f"(most), {max(x['exchange_s'] for x in xs) / steps * 1e3:.2f} ms host "
+                  f"(slowest); sums {xs[0]['sums'] / steps:.1f} and gathers "
+                  f"{xs[0]['gathers'] / steps:.1f}, "
+                  f"{max(x['collective_s'] for x in xs) / steps * 1e3:.2f} ms host (slowest); "
+                  f"peak memory per rank {max(f['peak_gib'] for f in figs):.3f} GiB stepping, "
+                  f"{max(f['build_peak_gib'] for f in figs):.3f} GiB building, against "
+                  f"{one['peak_gib']:.3f} and {one['build_peak_gib']:.3f} GiB one process",
+                  flush=True)
+            d = max(f["max_abs_vs_one_card"] for f in figs)
+            print(f"[ranks] {label}: {sum(f['checks'] for f in figs)} rank kernel calls, max "
+                  f"abs {d:.3e} from the one-card sharded calls' boxes, max rel "
+                  f"{max(f['max_rel_vs_plain'] for f in figs):.3e} from the plain versions",
+                  flush=True)
+            if d != 0.0:
+                raise AssertionError(f"{label}: a rank's kernel call differs from the "
+                                     f"one-card sharded call by {d:.3e}")
+            for name in names:
+                e = entries[name]
+                e.setdefault("launches_ranks", {})[f"{label} on {spec['grid']}"] = tot[name]
+                e["max_abs_vs_one_card"] = max(e.get("max_abs_vs_one_card", 0.0), d)
+            f0 = figs[0]
+            if spec["check"] != "first":
+                bound = ({k: SHARDED_RTOL for k in "vUp"} if spec["check"] == "tight"
+                         else {k: SPREAD_FACTOR * x for k, x in one["spread"].items()})
+                print(f"[ranks] {label}, ranks vs one process after {steps} steps: "
+                      + ", ".join(f"{k} rel {f0['errors'][k]:.4e} (bound {bound[k]:.4e}) "
+                                  f"max abs {f0['max_abs'][k]:.4e}" for k in f0["errors"])
+                      + ("; the bound: SHARDED_RTOL" if spec["check"] == "tight" else
+                         f"; the bound: {SPREAD_FACTOR:g} x the one-process run against "
+                         f"itself with its dots summed over 8 row blocks"), flush=True)
+                for k, e in f0["errors"].items():
+                    if not e <= bound[k] < 1.0:
+                        raise AssertionError(f"{label}: ranks vs one process {k} rel {e:.4e}, "
+                                             f"bound {bound[k]:.4e}")
+            else:
+                bound = {k: SPREAD_FACTOR * x for k, x in one["spread"].items()}
+                print(f"[ranks] {label}, ranks vs one process, first step: "
+                      + ", ".join(f"{k} {f0['first_errors'][k]:.4e} (one rounding of v "
+                                  f"{one['moved'][k]:.4e}, dots over 8 row blocks "
+                                  f"{one['blocked'][k]:.4e}; bound {bound[k]:.4e})"
+                                  for k in bound)
+                      + f"; retention over {steps} steps {f0['retention']:.5f} (one process "
+                      f"{one['retention']:.5f}; gate >= {RETENTION_MIN})", flush=True)
+                for k in bound:
+                    if not f0["first_errors"][k] <= bound[k] < 1.0:
+                        raise AssertionError(f"{label}: first step {k} "
+                                             f"{f0['first_errors'][k]:.4e} outside "
+                                             f"{SPREAD_FACTOR:g} x the one-rounding spread "
+                                             f"{one['spread'][k]:.4e}")
+                if not f0["retention"] >= RETENTION_MIN:
+                    raise AssertionError(f"{label}: retention {f0['retention']}")
+            if case == "cavity32":
+                faults = [f["fault"] for f in figs]
+                print(f"[ranks] planted fault (one received edge plane of the finest "
+                      f"Poisson apply zeroed on each rank): rel from the plain version "
+                      f"{min(x['rel_vs_plain'] for x in faults):.4e} (least), max abs from "
+                      f"the one-card call {min(x['max_abs_vs_one_card'] for x in faults):.4e} "
+                      f"(least)", flush=True)
+                for x in faults:
+                    if not (x["rel_vs_plain"] > KERNEL_RTOL[torch.float32]
+                            and x["max_abs_vs_one_card"] > 0.0):
+                        raise AssertionError(f"the planted rank fault passed: {x}")
+    print(f"[ranks] done in {time.perf_counter() - t0:.2f} s", flush=True)
+    return launches
+
+
+# ----------------------------------------------------------------------
 # the bench and probe entry points
 # ----------------------------------------------------------------------
 
@@ -3021,22 +3553,9 @@ def phase_profile(label, ns, cfg=None):
               f"{e.key[:90]}", flush=True)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also print a torch.profiler breakdown of 3 steps of "
-                         "the 2-D cavity, the 3-D cavity, the 128^3 channel "
-                         "(float32 and bf16), both 512x256x256 channel runs, "
-                         "the sharded and unsharded runs of phase_sharded, and "
-                         "the IBM cells (cylinder, sphere 48x32x32 and 128^3)")
-    args = ap.parse_args(argv)
-
-    t_start = time.perf_counter()
-    smi = phase_device()
-    resources = start_resource_report()
-    phase_build()
-    usage = finish_resource_report(resources)
-
+def kernel_entries() -> dict:
+    """The kernels line's entry of each stencil kernel instance, the
+    chain's stages and the halo instances, before any check."""
     def entry(kernel, replaces, dtypes):
         return {"name": kernel + ("_bf16" if dtypes == (BF16,) else ""),
                 "route": "cuda",
@@ -3065,6 +3584,35 @@ def main(argv=None) -> int:
         e.update(name=kernel + "_halo", checks=0, max_abs_vs_unsharded=0.0,
                  replaces=f"fluca_tpu/parallel/pallas_sharded.py:{line}")
         entries[e["name"]] = e
+    return entries
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also print a torch.profiler breakdown of 3 steps of "
+                         "the 2-D cavity, the 3-D cavity, the 128^3 channel "
+                         "(float32 and bf16), both 512x256x256 channel runs, "
+                         "the sharded and unsharded runs of phase_sharded, and "
+                         "the IBM cells (cylinder, sphere 48x32x32 and 128^3)")
+    # one rank of phase_ranks (the script starts its ranks as children)
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--init", help=argparse.SUPPRESS)
+    ap.add_argument("--case", choices=sorted(RANK_CASES), help=argparse.SUPPRESS)
+    ap.add_argument("--ref", help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.rank is not None:
+        return rank_main(args)
+
+    t_start = time.perf_counter()
+    smi = phase_device()
+    resources = start_resource_report()
+    phase_build()
+    usage = finish_resource_report(resources)
+
+    entries = kernel_entries()
     check_chain_pairs(entries)
     check_poisson(entries["poisson2d"])
     check_momentum(entries["momentum2d"])
@@ -3101,6 +3649,7 @@ def main(argv=None) -> int:
     turb_figures = phase_turb(smi, entries, accuracy_runs)
     fd_figures = phase_fd()
     launches_halo2d, launches_halo3d = phase_sharded(smi, entries, profile=args.profile)
+    phase_ranks(smi, entries)
     probe_entries = {}
     for name, (replaces, also) in PROBE_REPLACES.items():
         probe_entries[name] = {"name": name, "route": "cuda",
@@ -3182,7 +3731,7 @@ def main(argv=None) -> int:
             "unfused_ms", "unfused_launches", "kernels_ms", "unsharded_ms",
             "max_abs_vs_unsharded", "also_replaces", "max_abs_vs_poisson3d", "registers",
             "spill_bytes", "at_4096", "launches_ibm", "launches_accuracy", "modes_ms",
-            "apply_ms", "copy_ms")
+            "apply_ms", "copy_ms", "launches_ranks", "max_abs_vs_one_card")
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                   for e in entries.values()]}))
     print(smi)

@@ -3,7 +3,9 @@
 The state dict {"v": tuple, "U": tuple, "p", "phalf"} is what weights
 are to a model. These helpers carry a state held as numpy arrays (for
 instance one taken from the JAX package mid-run) onto a device and
-back, so two implementations can continue from the same state. An FD
+back, so two implementations can continue from the same state, and cut
+a whole state into one rank's block (``cut_state``), so that every rank
+of a rank-held grid starts from it. An FD
 operator carries across as its host bands (``stencil_op_from_numpy``),
 so two implementations can apply the same operator.
 """
@@ -33,6 +35,24 @@ def state_from_numpy(state_np, device, dtype) -> dict:
         else:
             out[k] = leaf(state_np[k])
     return out
+
+
+def cut_state(state, block) -> dict:
+    """This rank's block (``parallel.mesh.Block``) of a whole state, numpy
+    or torch (for instance from the JAX package or a one-process run): the
+    cells of v, p and phalf, and the faces of each U[d] lo + hilast. Each
+    leaf is a new contiguous array or tensor on the input's device."""
+
+    def leaf(x, face=None):
+        x = block.cut(x, face)
+        return x.contiguous() if isinstance(x, torch.Tensor) else np.ascontiguousarray(x)
+
+    return {
+        "v": tuple(leaf(x) for x in state["v"]),
+        "U": tuple(leaf(x, d) for d, x in enumerate(state["U"])),
+        "p": leaf(state["p"]),
+        "phalf": leaf(state["phalf"]),
+    }
 
 
 def state_to_numpy(state) -> dict:

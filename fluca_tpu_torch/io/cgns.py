@@ -20,14 +20,16 @@ nodes (cartcgns.c:355-379).
 All of it runs on the host, with numpy and h5py. h5py is imported only
 when a CGNS file is opened, so importing this module does not need it;
 without it every CGNS call raises ImportError. The multi-process
-hyperslab writer of the reference waits for the torch.distributed
-transport (ROADMAP queue 1, item 1).
+hyperslab writer of the reference (``_write_solution_multiproc``) waits for
+ROADMAP queue 1, item 1b.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from fluca_tpu_torch.io.checkpoint import refuse_rank_held
 
 
 def _require_h5py():
@@ -206,6 +208,7 @@ class CGNSWriter:
     def write_solution(self, ns) -> None:
         """One FlowSolution<step> with the cell fields, and the
         face-normal velocity as UserDefinedData (cartcgns.c:293-401)."""
+        refuse_rank_held(ns, "CGNSWriter.write_solution")
         if self._file is None:
             self._open()
         elif self.batch_size is not None and self._n_in_batch >= self.batch_size:
@@ -261,6 +264,7 @@ def load_solution_cgns(filename: str, ns, step: int | None = None):
     None) into ``ns`` (NSLoadSolution -> VecLoad_Cart_CGNS,
     nssol.c:174-204, cartcgns.c:644-758), cast to the solver's dtype on
     its device."""
+    refuse_rank_held(ns, "load_solution_cgns")
     data = read_cgns(filename)
     steps = sorted(data["solutions"])
     if not steps:

@@ -16,10 +16,12 @@ checkpoints, in both formats.
 
 The format written is the one the caller names; nothing falls back to
 another. Every field crosses to the host once on save (``.cpu()``) and
-once to the solver's device on load. A sharded NS keeps global tensors on
+once to the solver's device on load. A sharded NS on one card keeps global tensors on
 its one device (``NS.shard``), so it saves and loads through the same
-files; fluca_tpu's per-shard "sharded" format waits for the
-torch.distributed transport (ROADMAP queue 1, item 1).
+files. The per-rank writer and shard-local reader, and fluca_tpu's
+per-shard "sharded" format, wait for ROADMAP queue 1, item 1b: a rank of
+a rank-held grid holds only its block, and ``NS.gather_state`` assembles
+the whole state on one rank meanwhile.
 """
 
 from __future__ import annotations
@@ -35,6 +37,16 @@ import torch
 MAGIC = 0x464C5543414E4154  # "FLUCANAT"
 _HEADER = struct.Struct("<QQQ")
 FORMATS = ("native", "npz")
+
+
+def refuse_rank_held(ns, what: str) -> None:
+    """Raise for an NS whose state is one rank's block of a rank-held grid:
+    its per-rank files wait for ROADMAP queue 1, item 1b."""
+    if ns.impl is not None and ns.impl.rank_held:
+        raise NotImplementedError(
+            f"{what}: this rank holds one block of a rank-held grid; per-rank files "
+            f"need the per-rank writer and shard-local reader (ROADMAP queue 1, item "
+            f"1b); NS.gather_state gives the whole state on one rank")
 
 
 def _named_fields(state) -> dict:
@@ -95,6 +107,7 @@ def save_checkpoint(path: str, ns, fmt: str = "native") -> None:
     format ``fmt`` ("native" or "npz")."""
     if fmt not in FORMATS:
         raise ValueError(f"unknown checkpoint format {fmt!r}; one of {FORMATS}")
+    refuse_rank_held(ns, "save_checkpoint")
     os.makedirs(path, exist_ok=True)
     arrays = {name: t.detach().cpu().numpy()
               for name, t in _named_fields(ns.state).items()}
@@ -123,8 +136,8 @@ def _read_fields(path: str, meta: dict) -> dict:
             return {name: z[name] for name in z.files}
     if fmt == "sharded":
         raise NotImplementedError(
-            "per-shard checkpoints need the torch.distributed transport "
-            "(ROADMAP queue 1, item 1)"
+            "per-shard checkpoints need the per-rank writer and shard-local reader "
+            "(ROADMAP queue 1, item 1b)"
         )
     raise ValueError(f"{path}: unknown checkpoint format {fmt!r}")
 
@@ -135,6 +148,7 @@ def load_checkpoint(path: str, ns) -> None:
     cartcgns.c:644-758), and casts each field to the solver's dtype: a
     checkpoint written at one precision restarts at another, and where the
     dtypes match the round trip is bit for bit."""
+    refuse_rank_held(ns, "load_checkpoint")
     with open(os.path.join(path, "meta.json")) as fh:
         meta = json.load(fh)
     if list(ns.mesh.N) != meta["N"]:

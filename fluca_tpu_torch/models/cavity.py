@@ -21,7 +21,8 @@ def setup_cavity_2d(
     **ns_kwargs,
 ) -> NS:
     """Re=100, unit square, moving top lid (cavity_flow_2d.c:28-37),
-    on ``device``."""
+    on ``device``. ``ns_kwargs`` go to ``NS`` (``grid=``: a device grid,
+    or a rank-held one that builds the solver on this rank's block)."""
     mesh = CartMesh.create((N, N))
     mesh.set_uniform_coordinates(0.0, 1.0, 0.0, 1.0)
 

@@ -60,7 +60,10 @@ def setup_channel_3d(
     by the constant mean-pressure-gradient body force
     f_x = rho utau^2 / delta. ``stretch_y`` (g ~ 1.5-2.5) clusters the
     y faces toward the walls; ``perturb_mode`` is "noise" (white noise
-    on u) or "rolls" (streamwise rolls, streaks and a little noise)."""
+    on u) or "rolls" (streamwise rolls, streaks and a little noise).
+    ``ns_kwargs`` go to ``NS``; with ``grid=`` a rank-held grid, every
+    rank draws the whole initial condition on the host and keeps its
+    block of it."""
     delta = L[1] / 2.0
     rho = 1.0
     mu = rho * utau * delta / Re_tau
@@ -86,7 +89,9 @@ def setup_channel_3d(
     dev = ns.impl.device
 
     def full(val):
-        return torch.full(mesh.cell_shape, val, dtype=dt_, device=dev)
+        # one value broadcast over the cells, so that the force fits any
+        # block of them (a rank-held grid)
+        return torch.full((1,) * mesh.dim, val, dtype=dt_, device=dev)
 
     force = (full(rho * utau**2 / delta), full(0.0), full(0.0))
     ns.impl.body_force = lambda state, t: force
@@ -123,15 +128,19 @@ def setup_channel_3d(
     else:
         raise ValueError(f"unknown perturb_mode {perturb_mode!r}")
 
-    def dev_t(a):
-        return torch.tensor(np.ascontiguousarray(a), dtype=dt_, device=dev)
+    # the solver's block of each field (the whole grid, or this rank's
+    # block of a rank-held grid: ``grid=``)
+    blk = ns.impl.ops.block
+
+    def dev_t(a, face=None):
+        return torch.tensor(np.ascontiguousarray(blk.cut(a, face)), dtype=dt_, device=dev)
 
     ns.set_solution(
         v=(dev_t(u0), dev_t(v0), dev_t(w0)),
         U=(
-            dev_t(np.broadcast_to(u_lam[None, :, None], mesh.face_shape(0))),
-            dev_t(np.zeros(mesh.face_shape(1))),
-            dev_t(np.zeros(mesh.face_shape(2))),
+            dev_t(np.broadcast_to(u_lam[None, :, None], mesh.face_shape(0)), 0),
+            dev_t(np.zeros(mesh.face_shape(1)), 1),
+            dev_t(np.zeros(mesh.face_shape(2)), 2),
         ),
     )
     return ns

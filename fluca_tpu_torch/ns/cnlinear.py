@@ -56,7 +56,7 @@ from fluca_tpu_torch.mesh.cart import CartMesh
 from fluca_tpu_torch.ns.operators import NSOperators
 from fluca_tpu_torch.ops.chain3d import Chain3D
 from fluca_tpu_torch.solvers.krylov import (
-    KrylovResult, bicgstab, cg, fgmres, gcr, tree_add, tree_norm, tree_sub,
+    KrylovResult, bicgstab, cg, fgmres, gcr, tree_add, tree_dot, tree_sub,
 )
 from fluca_tpu_torch.solvers.mg import PoissonMG
 from fluca_tpu_torch.utils import config
@@ -216,17 +216,26 @@ class CNLinearSolver:
         cfg: CNLinearConfig | None = None,
         dtype=None,
         device="cuda",
+        grid=None,
     ):
+        from fluca_tpu_torch.parallel.mesh import RankGrid, same_device
+
         self.dtype = config.resolve_dtype(dtype)
         self.device = torch.device(device)
         self.cfg = cfg or CNLinearConfig()
-        self.ops = NSOperators(mesh, bcs, rho, mu, dt, self.dtype, self.device)
+        if grid is not None and not same_device(grid.device, self.device):
+            raise ValueError(f"device grid on {grid.device}, solver on {self.device}")
+        # a rank-held grid: the operators and the hierarchy are built on
+        # this rank's block from the start
+        held = grid if isinstance(grid, RankGrid) else None
+        self.ops = NSOperators(mesh, bcs, rho, mu, dt, self.dtype, self.device,
+                               grid=held)
         # the chain stages: the fused kernel in 3-D, the banded operators
         # in 2-D (and for the branches the chain does not serve, and
         # under a device grid)
         self._unfused = UnfusedChain(self.ops)
         self._chain = None
-        if mesh.dim == 3:
+        if mesh.dim == 3 and held is None:
             self._chain = Chain3D(mesh, self.ops.axbcs, rho, dt, self.dtype,
                                   self.device)
         self._stages = self._unfused if self._chain is None else self._chain
@@ -236,40 +245,62 @@ class CNLinearSolver:
         self.mu = float(mu)
         # multigrid hierarchy for Shat = vol .* (-D Gst)
         self.mg = PoissonMG(mesh, bcs, scale=dt / rho, dtype=self.dtype,
-                            device=self.device)
+                            device=self.device, grid=held)
         self.pin_pressure = not self.ops.has_pressure_outlet
         # the precond_dtype multigrid twin, built on first use
         # (_pre_resources)
         self._pre16 = None
         # the device grid (set_device_grid; None = one shard)
         self.grid = None
+        # the tree inner product of every Krylov solve (a rank-held grid
+        # adds the blocks' sums over the ranks)
+        self._dot = tree_dot if held is None else self._rank_dot
         # optional momentum body-force hook: f(state0, t) -> cell
         # vector; added to the momentum RHS as dt * f (the channel's
         # mean-pressure-gradient forcing)
         self.body_force = None
+        if grid is not None:
+            self.set_device_grid(grid)
 
     # -- domain decomposition -------------------------------------------
     def set_device_grid(self, grid) -> None:
-        """Run the step's kernels sharded over ``grid``
+        """Run the step sharded over ``grid``
         (fluca_tpu/ns/cnlinear.py:249-337, the reference's rank
         decomposition, cart.c:85-151): the momentum A-apply through its
         sharded form (parallel/sharded.py) and each multigrid level the
-        grid splits evenly through the sharded Poisson kernel
-        (``PoissonMG.set_device_grid``). The shards are boxes of the global
-        tensors on the solver's one device (``parallel/mesh.py``), so the
-        banded operators and the Krylov algebra run on the global tensors
-        as they are. As in the reference, a grid of more than one shard
-        runs the unfused chain (``UnfusedChain``: the reference runs its
-        chain kernel on one device only) and turns the reduced-precision
-        preconditioner off (``_pre_resources``). ``grid=None``, or a
-        degenerate grid of one shard, restores the single-device
-        kernels; the latter is recorded as the grid all the same."""
+        grid splits evenly through the sharded Poisson kernel.
+
+        On a ``DeviceGrid`` the shards are boxes of the global tensors on
+        the solver's one device (``parallel/mesh.py``), so the banded
+        operators and the Krylov algebra run on the global tensors as they
+        are (``PoissonMG.set_device_grid``).
+
+        A ``RankGrid`` is given to the constructor (``grid=``), never
+        here: this rank then holds its block of every field from the
+        start, the operators and the hierarchy are built on the block
+        (``NSOperators(grid=)``, ``PoissonMG(grid=)``), the banded
+        operators read past it through rank-to-rank exchanges, and every
+        dot, norm and mean sums over the block and adds the sums over the
+        ranks (``_dot``, ``_sum``). Such a solver keeps its grid.
+
+        As in the reference, a grid of more than one shard runs the
+        unfused chain (``UnfusedChain``: the reference runs its chain
+        kernel on one device only, fluca_tpu/ns/cnlinear.py:297-301) and
+        turns the reduced-precision preconditioner off
+        (``_pre_resources``). ``grid=None``, or a degenerate grid of one
+        shard, restores the single-device kernels; the latter is recorded
+        as the grid all the same."""
+        from fluca_tpu_torch.parallel.mesh import RankGrid, same_device
         from fluca_tpu_torch.parallel.sharded import (
             build_momentum2d_sharded, build_momentum_sharded,
         )
 
-        if grid is not None and grid.device.type != self.device.type:
+        if grid is not None and not same_device(grid.device, self.device):
             raise ValueError(f"device grid on {grid.device}, solver on {self.device}")
+        held = isinstance(grid, RankGrid)
+        if held != self.rank_held or (held and grid is not self.ops.grid):
+            raise ValueError("a rank-held grid is given when the solver is built "
+                             "(CNLinearSolver(grid=), NS(grid=)), and the solver keeps it")
         self.grid = grid
         self._pre16 = None
         ops = self.ops
@@ -284,21 +315,47 @@ class CNLinearSolver:
             ops.sharded_momentum = build_momentum_sharded(
                 grid, self.mesh, ops.axbcs, self.rho, self.mu, self.dt, self.dtype)
         self._stages = self._unfused
-        self.mg.set_device_grid(grid)
+        if not held:
+            self.mg.set_device_grid(grid)
 
     @property
     def sharded(self) -> bool:
         """Whether a grid of more than one shard is set."""
         return self.grid is not None and self.grid.size > 1
 
+    @property
+    def rank_held(self) -> bool:
+        """Whether this process holds one block of a rank-held grid."""
+        return self.ops.grid is not None
+
+    def _rank_dot(self, a, b):
+        """``tree_dot`` over this rank's blocks, added over the ranks (with
+        faces owned lo + hilast, each face counts once)."""
+        return self.grid.allsum(tree_dot(a, b))
+
+    def _sum(self, x):
+        """The sum of the field ``x`` (added over the ranks under a
+        rank-held grid)."""
+        s = torch.sum(x)
+        return self.grid.allsum(s) if self.rank_held else s
+
+    def _norm(self, tree):
+        return torch.sqrt(self._dot(tree, tree))
+
     # -- state ---------------------------------------------------------
     def zero_state(self) -> dict:
-        m, dev, dt = self.mesh, self.device, self.dtype
+        """The zero state on the operators' block (the whole grid, or this
+        rank's block of a rank-held grid)."""
+        blk = self.ops.block
+
+        def zeros(shape):
+            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
         return {
-            "v": m.zeros_cell_vector(dev, dt),
-            "U": m.zeros_face(dev, dt),
-            "p": m.zeros_cell(dev, dt),
-            "phalf": m.zeros_cell(dev, dt),
+            "v": tuple(zeros(blk.cell_shape) for _ in range(blk.dim)),
+            "U": tuple(zeros(blk.face_shape(d)) for d in range(blk.dim)),
+            "p": zeros(blk.cell_shape),
+            "phalf": zeros(blk.cell_shape),
         }
 
     def _budget_rtol(self, rtol):
@@ -323,9 +380,10 @@ class CNLinearSolver:
         cnlinear.py:487-494)."""
         vol = (mg or self.mg).levels[0].vol
         acc = torch.promote_types(p.dtype, torch.float32)
-        return (torch.sum((vol * p).to(acc)) / torch.sum(vol.to(acc))).to(
-            p.dtype
-        )
+        num, den = torch.sum((vol * p).to(acc)), torch.sum(vol.to(acc))
+        if self.rank_held:
+            num, den = self.grid.allsum(torch.stack([num, den]))
+        return (num / den).to(p.dtype)
 
     def _project_p(self, p, mg=None):
         """Remove the constant-pressure nullspace component (reference
@@ -347,7 +405,7 @@ class CNLinearSolver:
             return tuple(inv_diag[c] * r[c] for c in range(ops.dim))
 
         if cfg.mom_solver == "gcr":
-            return gcr(A, rhs_v, maxiter=cfg.mom_maxiter, M=M).x
+            return gcr(A, rhs_v, maxiter=cfg.mom_maxiter, M=M, dot=self._dot).x
         if cfg.mom_solver == "jacobi":
             # mom_maxiter damped-Jacobi sweeps: one fused A-apply and
             # an elementwise update per sweep, no reductions
@@ -364,7 +422,7 @@ class CNLinearSolver:
             raise ValueError(f"unknown momentum solver {cfg.mom_solver!r}")
         return bicgstab(
             A, rhs_v, rtol=self._budget_rtol(cfg.mom_rtol),
-            maxiter=cfg.mom_maxiter, M=M,
+            maxiter=cfg.mom_maxiter, M=M, dot=self._dot,
         ).x
 
     def _ainv_diag(self, kind: str, Acoeffs, diagA):
@@ -377,7 +435,7 @@ class CNLinearSolver:
             return tuple(1.0 / d for d in diagA)
         if kind == "rowsum":
             ones = tuple(
-                torch.ones(self.mesh.cell_shape, dtype=self.dtype,
+                torch.ones(self.ops.block.cell_shape, dtype=self.dtype,
                            device=self.device)
                 for _ in range(self.ops.dim)
             )
@@ -417,6 +475,7 @@ class CNLinearSolver:
                 maxiter=cfg.schur_maxiter,
                 M=mg.precondition,
                 project=proj,
+                dot=self._dot,
             ).x
         ops = self.ops
 
@@ -431,6 +490,7 @@ class CNLinearSolver:
         p = fgmres(
             S, mg.scale_rhs(rhs_p), rtol=cfg.schur_rtol,
             maxiter=cfg.schur_maxiter, restart=30, M=mg.precondition,
+            dot=self._dot,
         ).x
         return proj(p) if proj else p
 
@@ -580,7 +640,7 @@ class CNLinearSolver:
             for d in range(dim)
         )
 
-        contrhs = torch.zeros(self.mesh.cell_shape, dtype=self.dtype,
+        contrhs = torch.zeros(self.ops.block.cell_shape, dtype=self.dtype,
                               device=self.device)
         return {"v": momrhs, "U": interprhs, "p": contrhs}
 
@@ -601,15 +661,15 @@ class CNLinearSolver:
             # classical fractional step: one ABF application is the
             # solve; the coupled residual is reported for diagnostics
             x = M(rhs)
-            rnorm = tree_norm(tree_sub(rhs, A(x)))
+            rnorm = self._norm(tree_sub(rhs, A(x)))
             return KrylovResult(x=x, iters=1, rnorm=rnorm,
                                 converged=torch.isfinite(rnorm))
         if cfg.solve_type != "coupled":
             raise ValueError(f"unknown solve type {cfg.solve_type!r}")
         if cfg.outer_type == "gcr":
-            res = gcr(A, rhs, maxiter=cfg.maxiter, M=M)
+            res = gcr(A, rhs, maxiter=cfg.maxiter, M=M, dot=self._dot)
             res.converged = torch.logical_and(
-                res.converged, torch.isfinite(torch.sum(res.x["p"]))
+                res.converged, torch.isfinite(self._sum(res.x["p"]))
             )
             return res
         if cfg.outer_type == "richardson":
@@ -626,17 +686,17 @@ class CNLinearSolver:
                 x = tree_add(x, M(rlast))
             # rnorm: the coupled residual before the last correction;
             # the final iterate is probed for NaN/inf too
-            rnorm = tree_norm(rlast)
+            rnorm = self._norm(rlast)
             return KrylovResult(
                 x=x, iters=cfg.maxiter, rnorm=rnorm,
                 converged=torch.logical_and(
-                    torch.isfinite(rnorm), torch.isfinite(torch.sum(x["p"]))
+                    torch.isfinite(rnorm), torch.isfinite(self._sum(x["p"]))
                 ),
             )
         if cfg.outer_type != "fgmres":
             raise ValueError(f"unknown outer solver {cfg.outer_type!r}")
         return fgmres(A, rhs, x0=x0, rtol=cfg.rtol, restart=cfg.restart,
-                      maxiter=cfg.maxiter, M=M)
+                      maxiter=cfg.maxiter, M=M, dot=self._dot)
 
     def _step_impl(self, state, t, is_first_step: bool):
         ops = self.ops
@@ -693,7 +753,7 @@ class CNLinearSolver:
             "converged": converged,
         }
         if self.cfg.diag_rhs_norm:
-            diag["rhs_norm"] = tree_norm(rhs)
+            diag["rhs_norm"] = self._norm(rhs)
         return new_state, diag
 
     def step(self, state, t, step_index: int):

@@ -67,6 +67,7 @@ class NS:
         options: Optional[Options] = None,
         dtype=None,
         error_if_step_failed: bool = True,
+        grid=None,
     ):
         self.mesh = mesh
         self.device = check_device(device)
@@ -93,6 +94,9 @@ class NS:
         self.last_diag = None
         self.impl: Optional[CNLinearSolver] = None
         self.state = None
+        # the device grid the solver is built on (``shard``): a rank-held
+        # grid must be known before anything is allocated
+        self._grid = grid
 
     # -- setup ---------------------------------------------------------
     def set_boundary_condition(self, boundary_index: int, bc) -> None:
@@ -126,7 +130,7 @@ class NS:
             factory = ns_registry.get(self.ns_type)
             self.impl = factory(
                 self.mesh, self.bcs, self.rho, self.mu, self.dt,
-                cfg=cfg, dtype=self.dtype, device=self.device,
+                cfg=cfg, dtype=self.dtype, device=self.device, grid=self._grid,
             )
             if self.state is None:
                 self.state = self.impl.zero_state()
@@ -136,20 +140,53 @@ class NS:
         """Run the solver over a device grid, the counterpart of
         fluca_tpu/ns/ns.py:125-150 (the reference's MPI rank
         decomposition, MeshSetUp_Cart, cart.c:85-151): its kernels run
-        sharded, one halo launch per shard, with the edge planes
-        exchanged between shards (``CNLinearSolver.set_device_grid``).
-        ``grid`` is a parallel.mesh.DeviceGrid; or pass ``shape`` (e.g.
-        (2, 4)) and/or ``devices`` to build one (``make_device_grid``,
-        on the solver's device by default). The shards share that device:
-        the state stays where it is."""
-        from fluca_tpu_torch.parallel.mesh import make_device_grid
+        sharded, with the edge planes exchanged between shards
+        (``CNLinearSolver.set_device_grid``). ``grid`` is a
+        parallel.mesh.DeviceGrid or RankGrid; or pass ``shape`` (e.g.
+        (2, 4)) and/or ``devices`` to build one (``make_device_grid``, on
+        the solver's device by default; under a process group of more than
+        one rank, the rank-held grid).
 
-        self.setup()
+        On a DeviceGrid the shards share the solver's device and the state
+        stays where it is. A RankGrid is taken before ``setup`` (or given
+        as ``NS(grid=)``, which the ``setup_*`` models pass on): the solver
+        and its zero state are then built on this rank's block of ``v``,
+        ``U``, ``p`` and ``phalf`` (cells, and faces lo + hilast), and no
+        rank allocates a field of the whole grid; ``interop.cut_state``
+        cuts a whole state for ``set_solution``, and ``gather_state``
+        assembles the whole state for output. ``advance``, ``step`` and the
+        monitors run on every rank."""
+        from fluca_tpu_torch.parallel.mesh import RankGrid, make_device_grid
+
         if grid is None:
             grid = make_device_grid(self.mesh.dim,
                                     devices=[self.device] if devices is None else devices,
                                     shape=shape)
-        self.impl.set_device_grid(grid)
+        if self.impl is None:
+            self._grid = grid
+            self.setup()
+        elif isinstance(grid, RankGrid):
+            raise ValueError("a rank-held grid is taken before setup (NS(grid=), "
+                             "setup_*(grid=)), so that no rank builds the whole solver")
+        else:
+            self.impl.set_device_grid(grid)
+
+    def gather_state(self):
+        """The whole state, assembled from every rank's block, on rank 0
+        (None on the others); every rank must call it. The state itself
+        where no rank-held grid is set. Nothing in the step calls it: it is
+        for comparisons and output."""
+        if not self.impl.rank_held:
+            return self.state
+        grid, m = self.impl.grid, self.mesh
+        out = {
+            "v": tuple(grid.gather(x, m.N, m.periodic) for x in self.state["v"]),
+            "U": tuple(grid.gather(x, m.N, m.periodic, face=d)
+                       for d, x in enumerate(self.state["U"])),
+            "p": grid.gather(self.state["p"], m.N, m.periodic),
+            "phalf": grid.gather(self.state["phalf"], m.N, m.periodic),
+        }
+        return out if grid.rank == 0 else None
 
     @property
     def device_grid(self):

@@ -8,6 +8,14 @@ momentum kernel (ops/cuda_stencil.py): in 2-D on its 26-plane
 coefficient stack, in 3-D on 27-row per-axis bands and the step's face
 factors (``apply_A_coeffs``).
 
+Under a rank-held grid (``parallel.mesh.RankGrid``, ``grid=``) every field
+is this rank's block (``parallel.mesh.Block``: cells, and faces lo +
+hilast), every band its block's rows of the host-f64 tables, and a read
+past the block along a split axis comes from the neighbour rank: one
+exchange per operator and axis, as wide as the largest band offset
+(``parallel.halo.rank_slabs``). The boundary-condition inserts act only
+on the ranks that hold that boundary.
+
 Field layout conventions (see fluca_tpu_torch.mesh.cart):
   cell scalar  p  : (N0, N1[, N2])
   cell vector  v  : tuple of dim cell tensors
@@ -42,8 +50,9 @@ from fluca_tpu_torch.ops.banded import (
     apply_axis_stencil,
     broadcast_1d,
     compose_axis_stencils,
-    shifted,
 )
+from fluca_tpu_torch.parallel.halo import rank_slabs
+from fluca_tpu_torch.parallel.mesh import Block
 
 # plane order of the fused momentum kernel's coefficient stack
 # (csrc/momentum2d.cu): (component, kind, axis) triples with offsets
@@ -55,9 +64,14 @@ _STACK_ORDER = (
 
 
 class NSOperators:
-    def __init__(self, mesh: CartMesh, bcs, rho, mu, dt, dtype, device):
+    def __init__(self, mesh: CartMesh, bcs, rho, mu, dt, dtype, device, grid=None):
         validate_bcs(mesh, bcs)
         self.mesh = mesh
+        # a RankGrid (the operators act on this rank's block), or None
+        self.grid = grid
+        blk = (Block.whole(mesh.N, mesh.periodic) if grid is None
+               else grid.block(mesh.N, mesh.periodic))
+        self.block = blk
         self.bcs = list(bcs)
         self.rho = float(rho)
         self.mu = float(mu)
@@ -69,11 +83,13 @@ class NSOperators:
         axbcs = T_.axis_bcs(mesh, bcs)
         self.axbcs = axbcs
 
-        def dev(stencil):
-            return stencil.device_bands(dim, dtype, self.device)
+        def dev(stencil, faces=False):
+            d = stencil.axis
+            return stencil.device_bands(dim, dtype, self.device,
+                                        blk.faces(d) if faces else blk.cells(d))
 
         def bcast(w, axis):
-            return broadcast_1d(self._tensor(np.asarray(w)), dim, axis)
+            return broadcast_1d(self._tensor(np.asarray(w)[blk.cells(axis)]), dim, axis)
 
         self.g_bands, self.g_bc = [], []
         self.l_bands = [[None] * dim for _ in range(dim)]
@@ -95,11 +111,11 @@ class NSOperators:
                 self.l_bc[c][d] = (float(blo), float(bhi))
 
                 sti, ilo, ihi = T_.interp_tables(mesh, d, axbcs[d], c)
-                self.b_bands[d][c] = dev(sti)
+                self.b_bands[d][c] = dev(sti, faces=True)
                 self.b_insert[d][c] = (ilo, ihi)
 
             st, lo, hi = T_.gst_tables(mesh, d, axbcs[d])
-            self.gst_bands.append(dev(st))
+            self.gst_bands.append(dev(st, faces=True))
             self.gst_bc.append((float(lo), float(hi)))
             self.d_bands.append(dev(T_.div_tables(mesh, d)))
 
@@ -113,7 +129,7 @@ class NSOperators:
             r_st = AxisStencil.from_dict(
                 d, mesh.nfaces(d), mesh.periodic[d], rb
             )
-            self.r_bands.append(dev(r_st))
+            self.r_bands.append(dev(r_st, faces=True))
 
             variants = {}
             for col_is_normal in (False, True):
@@ -131,10 +147,10 @@ class NSOperators:
         # Laplacian diagonal per component (for Jacobi preconditioning)
         diagL = []
         for c in range(dim):
-            tot = np.zeros(mesh.cell_shape)
+            tot = np.zeros(blk.cell_shape)
             for d in range(dim):
                 st, _, _ = T_.lap_tables(mesh, d, axbcs[d], c)
-                w0 = st.as_dict().get(0, np.zeros(mesh.N[d]))
+                w0 = st.as_dict().get(0, np.zeros(mesh.N[d]))[blk.cells(d)]
                 shape = [1] * dim
                 shape[d] = -1
                 tot = tot + w0.reshape(shape)
@@ -155,7 +171,7 @@ class NSOperators:
                         val = mesh.faces[d][0 if side == 0 else mesh.N[d]]
                         arr = np.full((1,), val)
                     else:
-                        arr = mesh.centers(a)
+                        arr = mesh.centers(a)[blk.cells(a)]
                     shape = [1] * dim
                     shape[a] = -1
                     coords.append(self._tensor(arr.reshape(shape)))
@@ -179,9 +195,10 @@ class NSOperators:
         self.sharded_momentum = None
 
     def _momentum_bands(self, dtype):
+        host = cuda_stencil.build_momentum_bands_3d(
+            self.mesh, self.axbcs, self.rho, self.mu, self.dt)
         return cuda_stencil.Momentum3DBands.from_host(
-            cuda_stencil.build_momentum_bands_3d(
-                self.mesh, self.axbcs, self.rho, self.mu, self.dt),
+            [B[:, self.block.cells(a)] for a, B in enumerate(host)],
             self.mesh.periodic, dtype, self.device,
         )
 
@@ -208,13 +225,18 @@ class NSOperators:
     # ------------------------------------------------------------------
     # slice helpers
     # ------------------------------------------------------------------
+    def _owns(self, d, side) -> bool:
+        """Whether the block holds boundary ``side`` (0 low, 1 high) of a
+        non-periodic axis ``d``."""
+        return self.block.at_lo(d) if side == 0 else self.block.at_hi(d)
+
     def _cell_boundary_slice(self, d, side):
         idx = [slice(None)] * self.dim
-        idx[d] = slice(0, 1) if side == 0 else slice(self.mesh.N[d] - 1, None)
+        idx[d] = slice(0, 1) if side == 0 else slice(self.block.n[d] - 1, None)
         return tuple(idx)
 
     def _face_boundary_slice(self, d, side):
-        nf = self.mesh.nfaces(d)
+        nf = self.block.nfaces(d)
         idx = [slice(None)] * self.dim
         idx[d] = slice(0, 1) if side == 0 else slice(nf - 1, None)
         return tuple(idx)
@@ -222,10 +244,40 @@ class NSOperators:
     def _face_factors(self, F, d):
         """Low/high face factor tensors (cell shape) from face tensor F
         along axis d."""
+        n = self.block.n[d]
+        if self.block.split[d]:
+            return F.narrow(d, 0, n), self._apply(((1, 1.0),), F, d, n)
         if self.mesh.periodic[d]:
             return F, torch.roll(F, -1, d)
-        n = self.mesh.N[d]
         return F.narrow(d, 0, n), F.narrow(d, 1, n)
+
+    def _apply(self, bands, x, d, n_out):
+        """sum over (off, w) in ``bands`` of w * x[i + off] along ``d`` for
+        i < n_out (``apply_axis_stencil``), on a block: along a split axis
+        the reads past it come from the neighbour ranks, one exchange as
+        wide as the largest offset, with the terms in the same order."""
+        if not self.block.split[d]:
+            return apply_axis_stencil(bands, x, d, n_out, self.mesh.periodic[d])
+        if not bands:
+            shape = list(x.shape)
+            shape[d] = n_out
+            return x.new_zeros(shape)
+        lo = max(0, -min(off for off, _ in bands))
+        hi = max(0, max(off for off, _ in bands))
+        glo, ghi = rank_slabs(x, self.grid, d, self.mesh.periodic[d], lo, hi)
+        parts = [t for t in (glo, x, ghi) if t is not None]
+        extra = n_out - x.shape[d]
+        if extra > 0:
+            # face N of a wall's last block reads past the grid: zeros
+            shape = list(x.shape)
+            shape[d] = extra
+            parts.append(x.new_zeros(shape))
+        ext = torch.cat(parts, d) if len(parts) > 1 else x
+        y = None
+        for off, w in bands:
+            term = w * ext.narrow(d, lo + off, n_out)
+            y = term if y is None else y + term
+        return y
 
     # ------------------------------------------------------------------
     # operator applications
@@ -235,9 +287,7 @@ class NSOperators:
         s = self.dt / self.rho
         return tuple(
             s
-            * apply_axis_stencil(
-                self.g_bands[d], p, d, self.mesh.N[d], self.mesh.periodic[d]
-            )
+            * self._apply(self.g_bands[d], p, d, self.block.n[d])
             for d in range(self.dim)
         )
 
@@ -247,20 +297,13 @@ class NSOperators:
         for c in range(self.dim):
             acc = None
             for d in range(self.dim):
-                t = apply_axis_stencil(
-                    self.l_bands[c][d], v[c], d, self.mesh.N[d],
-                    self.mesh.periodic[d],
-                )
+                t = self._apply(self.l_bands[c][d], v[c], d, self.block.n[d])
                 acc = t if acc is None else acc + t
             out.append(acc)
         return tuple(out)
 
     def _conv_band(self, x, wdict, d):
-        acc = None
-        for off, w in wdict.items():
-            t = w * shifted(x, d, off, self.mesh.N[d], self.mesh.periodic[d])
-            acc = t if acc is None else acc + t
-        return acc if acc is not None else torch.zeros_like(x)
+        return self._apply(tuple(wdict.items()), x, d, self.block.n[d])
 
     def apply_C(self, v, U0, v0f):
         """Linearized convection (unscaled):
@@ -325,7 +368,7 @@ class NSOperators:
         dim = self.dim
         dt = self.dt
         b = 0.5 * self.mu * self.dt / self.rho
-        shape = self.mesh.cell_shape
+        shape = self.block.cell_shape
         selfc = [[None] * dim for _ in range(dim)]
         cross = [[None] * dim for _ in range(dim)]
         for c in range(dim):
@@ -377,7 +420,7 @@ class NSOperators:
             raise ValueError("the stacked momentum coefficients are 2-D; "
                              "3-D uses build_momentum_factors_3d")
         C = self.build_momentum_coeffs(U0, v0f)
-        zeros = self._zeros(self.mesh.cell_shape)
+        zeros = self._zeros(self.block.cell_shape)
         planes = []
         for c, kind, d in _STACK_ORDER:
             table = C[kind][c][d]
@@ -432,10 +475,7 @@ class NSOperators:
         vf[d][c]."""
         return tuple(
             tuple(
-                apply_axis_stencil(
-                    self.b_bands[d][c], v[c], d, self.mesh.nfaces(d),
-                    self.mesh.periodic[d],
-                )
+                self._apply(self.b_bands[d][c], v[c], d, self.block.nfaces(d))
                 for c in range(self.dim)
             )
             for d in range(self.dim)
@@ -444,10 +484,7 @@ class NSOperators:
     def apply_T(self, v):
         """Face-normal interpolation -> face scalar."""
         return tuple(
-            apply_axis_stencil(
-                self.b_bands[d][d], v[d], d, self.mesh.nfaces(d),
-                self.mesh.periodic[d],
-            )
+            self._apply(self.b_bands[d][d], v[d], d, self.block.nfaces(d))
             for d in range(self.dim)
         )
 
@@ -456,10 +493,7 @@ class NSOperators:
         s = self.dt / self.rho
         return tuple(
             s
-            * apply_axis_stencil(
-                self.gst_bands[d], p, d, self.mesh.nfaces(d),
-                self.mesh.periodic[d],
-            )
+            * self._apply(self.gst_bands[d], p, d, self.block.nfaces(d))
             for d in range(self.dim)
         )
 
@@ -467,10 +501,7 @@ class NSOperators:
         """Divergence of face-normal velocity -> cell scalar."""
         acc = None
         for d in range(self.dim):
-            t = apply_axis_stencil(
-                self.d_bands[d], U[d], d, self.mesh.N[d],
-                self.mesh.periodic[d],
-            )
+            t = self._apply(self.d_bands[d], U[d], d, self.block.n[d])
             acc = t if acc is None else acc + t
         return acc
 
@@ -480,10 +511,7 @@ class NSOperators:
         s = self.dt / self.rho
         return tuple(
             s
-            * apply_axis_stencil(
-                self.r_bands[d], p, d, self.mesh.nfaces(d),
-                self.mesh.periodic[d],
-            )
+            * self._apply(self.r_bands[d], p, d, self.block.nfaces(d))
             for d in range(self.dim)
         )
 
@@ -512,13 +540,13 @@ class NSOperators:
     def bc_G(self, t):
         """Pressure-gradient bc vector (unscaled; caller multiplies
         dt/rho), cnlinearcart2d.c:155-290."""
-        out = [self._zeros(self.mesh.cell_shape) for _ in range(self.dim)]
+        out = [self._zeros(self.block.cell_shape) for _ in range(self.dim)]
         for d in range(self.dim):
             if self.mesh.periodic[d]:
                 continue
             for side in (0, 1):
                 coef = self.g_bc[d][side]
-                if coef == 0.0:
+                if coef == 0.0 or not self._owns(d, side):
                     continue
                 pb = self._eval_pressure(d, side, t)
                 sl = self._cell_boundary_slice(d, side)
@@ -527,12 +555,13 @@ class NSOperators:
 
     def bc_L(self, t):
         """Laplacian bc vector (cnlinearcart2d.c:450-599)."""
-        out = [self._zeros(self.mesh.cell_shape) for _ in range(self.dim)]
+        out = [self._zeros(self.block.cell_shape) for _ in range(self.dim)]
         for d in range(self.dim):
             if self.mesh.periodic[d]:
                 continue
             for side in (0, 1):
-                if self.bcs[2 * d + side].type != BCType.VELOCITY:
+                if self.bcs[2 * d + side].type != BCType.VELOCITY \
+                        or not self._owns(d, side):
                     continue
                 vb = self._eval_velocity(d, side, t)
                 sl = self._cell_boundary_slice(d, side)
@@ -547,12 +576,13 @@ class NSOperators:
         """Convection bc vector: boundary-face flux of the linearized
         convection at VELOCITY boundaries (cnlinearcart2d.c:899-1042).
         Sign is - at low faces, + at high faces."""
-        out = [self._zeros(self.mesh.cell_shape) for _ in range(self.dim)]
+        out = [self._zeros(self.block.cell_shape) for _ in range(self.dim)]
         for d in range(self.dim):
             if self.mesh.periodic[d]:
                 continue
             for side in (0, 1):
-                if self.bcs[2 * d + side].type != BCType.VELOCITY:
+                if self.bcs[2 * d + side].type != BCType.VELOCITY \
+                        or not self._owns(d, side):
                     continue
                 vb0 = self._eval_velocity(d, side, t0)
                 vb1 = self._eval_velocity(d, side, t1)
@@ -573,12 +603,12 @@ class NSOperators:
         for d in range(self.dim):
             row = []
             for c in comps(d):
-                arr = self._zeros(self.mesh.face_shape(d))
+                arr = self._zeros(self.block.face_shape(d))
                 if not self.mesh.periodic[d]:
                     for side in (0, 1):
                         if self.bcs[2 * d + side].type != BCType.VELOCITY:
                             continue
-                        if not self.b_insert[d][c][side]:
+                        if not self.b_insert[d][c][side] or not self._owns(d, side):
                             continue
                         vb = self._eval_velocity(d, side, t)
                         sl = self._face_boundary_slice(d, side)
@@ -601,11 +631,11 @@ class NSOperators:
         cnlinearcart2d.c:1797-1931)."""
         out = []
         for d in range(self.dim):
-            arr = self._zeros(self.mesh.face_shape(d))
+            arr = self._zeros(self.block.face_shape(d))
             if not self.mesh.periodic[d]:
                 for side in (0, 1):
                     coef = self.gst_bc[d][side]
-                    if coef == 0.0:
+                    if coef == 0.0 or not self._owns(d, side):
                         continue
                     pb = self._eval_pressure(d, side, t)
                     sl = self._face_boundary_slice(d, side)

@@ -84,12 +84,15 @@ class AxisStencil:
     def as_dict(self) -> dict[int, np.ndarray]:
         return {off: w for off, w in self.bands}
 
-    def device_bands(self, ndim: int, dtype, device):
+    def device_bands(self, ndim: int, dtype, device, rows=slice(None)):
+        """The bands as tensors broadcast along ``axis``; ``rows`` selects
+        the output rows (a block's, under a rank-held grid)."""
         return tuple(
             (
                 off,
                 broadcast_1d(
-                    torch.as_tensor(w, dtype=dtype, device=device),
+                    torch.as_tensor(np.ascontiguousarray(w[rows]), dtype=dtype,
+                                    device=device),
                     ndim, self.axis,
                 ),
             )

@@ -981,6 +981,9 @@ class Momentum3DFactors:
     v0f: tuple
     shape: tuple[int, int, int]  # the cell shape
     periodic: tuple[bool, bool, bool]
+    # the face extent along each face array's own axis where it is not
+    # the grid's (a rank's block owns n, or n + 1 faces at a wall's end)
+    nfaces: tuple[int, int, int] | None = None
 
     def __post_init__(self):
         if len(self.U0) != 3 or len(self.v0f) != 3 \
@@ -992,6 +995,8 @@ class Momentum3DFactors:
                       for c, F in enumerate(row)})
         for label, (a, F) in faces.items():
             want = _face_shape(self.shape, self.periodic, a)
+            if self.nfaces is not None:
+                want = tuple(self.nfaces[a] if d == a else m for d, m in enumerate(want))
             if not isinstance(F, torch.Tensor) or tuple(F.shape) != want:
                 raise ValueError(f"momentum3d factors: {label} must have "
                                  f"shape {want}")
@@ -999,9 +1004,10 @@ class Momentum3DFactors:
                        {label: F for label, (_, F) in faces.items()})
 
     @classmethod
-    def from_faces(cls, U0, v0f, bands: Momentum3DBands, dtype=None):
+    def from_faces(cls, U0, v0f, bands: Momentum3DBands, dtype=None, nfaces=None):
         """The factors in the field dtype ``dtype`` (the bands' dtype if
-        None) for ``bands``, whose dtype must be its ``coef_dtype``."""
+        None) for ``bands``, whose dtype must be its ``coef_dtype``;
+        ``nfaces``: the face extents of a rank's block."""
         dtype = bands.b[0].dtype if dtype is None else dtype
         if dtype not in _DTYPE_SUFFIX or coef_dtype(dtype) != bands.b[0].dtype:
             raise TypeError(f"momentum3d factors: fields in {dtype} take "
@@ -1013,7 +1019,7 @@ class Momentum3DFactors:
 
         return cls(tuple(prep(F) for F in U0),
                    tuple(tuple(prep(F) for F in row) for row in v0f),
-                   bands.shape, bands.periodic)
+                   bands.shape, bands.periodic, None if nfaces is None else tuple(nfaces))
 
 
 # The launch geometry of csrc/momentum3d.cu: a block of 32 x ``rows``
@@ -1177,11 +1183,29 @@ class HaloLayout:
     grid: DeviceGrid
     shape: tuple[int, ...]
     periodic: tuple[bool, ...]
+    # a rank's block (``rank_block``): the axes split over ranks, which are
+    # halo axes of the one block at offset 0; None for a DeviceGrid's shards
+    split: tuple[bool, ...] | None = None
 
     def __post_init__(self):
         if len(self.periodic) != len(self.shape):
             raise ValueError(f"layout: shape {self.shape}, periodic {self.periodic}")
         self.grid.local_shape(self.shape)
+        if self.split is not None and (len(self.split) != len(self.shape)
+                                       or self.grid.size != 1):
+            raise ValueError(f"layout: a rank's block takes a grid of one shard and a "
+                             f"split flag per axis, not {self.grid.shape}, {self.split}")
+
+    @classmethod
+    def rank_block(cls, device, shape, periodic, split) -> "HaloLayout":
+        """The layout of one rank's block of a ``parallel.mesh.RankGrid``:
+        one block of ``shape`` cells at offset 0 on ``device``, whose axes
+        split over ranks (``split``) are halo axes, with one edge plane per
+        side of the block's extents. Its coefficient arrays are the
+        block's rows (the geometry's global extents are the block's)."""
+        D = len(shape)
+        return cls(DeviceGrid((1,) * D, (torch.device(device),)), tuple(shape),
+                   tuple(bool(p) for p in periodic), tuple(bool(x) for x in split))
 
     @functools.cached_property
     def local(self) -> tuple[int, ...]:
@@ -1191,12 +1215,13 @@ class HaloLayout:
     @functools.cached_property
     def modes(self) -> tuple[str, ...]:
         """Per axis "halo", "periodic" or "wall" (HALO_MODES)."""
-        return tuple("halo" if s > 1 else "periodic" if per else "wall"
-                     for s, per in zip(self.grid.shape, self.periodic))
+        split = self.split or tuple(s > 1 for s in self.grid.shape)
+        return tuple("halo" if sp else "periodic" if per else "wall"
+                     for sp, per in zip(split, self.periodic))
 
     @functools.cached_property
     def halo_axes(self) -> tuple[int, ...]:
-        return tuple(a for a, s in enumerate(self.grid.shape) if s > 1)
+        return tuple(a for a, m in enumerate(self.modes) if m == "halo")
 
     @property
     def key(self):

@@ -12,6 +12,8 @@ before each iteration, one host read per iteration. The two forms make
 the same iterates until the tolerance is met.
 
 All solvers accept:
+  dot     : the tree inner product (``tree_dot``; under a rank-held grid
+            the local sum added over the ranks)
   A       : tree -> tree linear operator
   b       : right-hand side tree
   x0      : initial guess (zeros if None)
@@ -121,12 +123,16 @@ def _nz(x):
     return torch.where(x == 0, torch.ones_like(x), x)
 
 
-def _tolerance(b, rtol, atol) -> float | None:
+def _norm(dot, a):
+    return torch.sqrt(dot(a, a))
+
+
+def _tolerance(b, rtol, atol, dot) -> float | None:
     """max(rtol * |b|, atol) on the host, or None for a fixed
     budget."""
     if rtol is None:
         return None
-    return max(rtol * float(tree_norm(b)), atol)
+    return max(rtol * float(_norm(dot, b)), atol)
 
 
 def _finish(x, k, rnorm, tol):
@@ -150,6 +156,7 @@ def cg(
     atol: float = 0.0,
     M: Optional[Callable] = None,
     project: Optional[Callable] = None,
+    dot: Callable = tree_dot,
 ) -> KrylovResult:
     M = M or _identity
     P = project or _identity
@@ -160,27 +167,27 @@ def cg(
     else:
         x = x0
         r = P(tree_sub(b, A(x0)))
-    tol = _tolerance(b, rtol, atol)
+    tol = _tolerance(b, rtol, atol, dot)
     z = P(M(r))
     p = z
-    rz = tree_dot(r, z)
-    rnorm = None if tol is None else tree_norm(r)
+    rz = dot(r, z)
+    rnorm = None if tol is None else _norm(dot, r)
     k = 0
     while k < maxiter and (tol is None or float(rnorm) > tol):
         Ap = P(A(p))
-        alpha = rz / _nz(tree_dot(p, Ap))
+        alpha = rz / _nz(dot(p, Ap))
         x = tree_axpy(alpha, p, x)
         r = tree_axpy(-alpha, Ap, r)
         z = P(M(r))
-        rz_new = tree_dot(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / _nz(rz)
         p = tree_axpy(beta, p, z)
         rz = rz_new
         k += 1
         if tol is not None:
-            rnorm = tree_norm(r)
+            rnorm = _norm(dot, r)
     if tol is None:
-        rnorm = tree_norm(r)
+        rnorm = _norm(dot, r)
     return _finish(P(x), k, rnorm, tol)
 
 
@@ -197,6 +204,7 @@ def bicgstab(
     rtol: Optional[float] = None,
     atol: float = 0.0,
     M: Optional[Callable] = None,
+    dot: Callable = tree_dot,
 ) -> KrylovResult:
     M = M or _identity
     if x0 is None:
@@ -205,34 +213,34 @@ def bicgstab(
     else:
         x = x0
         r = tree_sub(b, A(x0))
-    tol = _tolerance(b, rtol, atol)
+    tol = _tolerance(b, rtol, atol, dot)
     rhat = r
     p = tree_zeros_like(b)
     v = tree_zeros_like(b)
     one = torch.ones((), dtype=tree_leaves(b)[0].dtype,
                      device=tree_leaves(b)[0].device)
     rho = alpha = omega = one
-    rnorm = None if tol is None else tree_norm(r)
+    rnorm = None if tol is None else _norm(dot, r)
     k = 0
     while k < maxiter and (tol is None or float(rnorm) > tol):
-        rho_new = tree_dot(rhat, r)
+        rho_new = dot(rhat, r)
         beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
         p = tree_axpy(beta, tree_axpy(-omega, v, p), r)
         phat = M(p)
         v = A(phat)
-        alpha = rho_new / _nz(tree_dot(rhat, v))
+        alpha = rho_new / _nz(dot(rhat, v))
         s = tree_axpy(-alpha, v, r)
         shat = M(s)
         t = A(shat)
-        omega = tree_dot(t, s) / _nz(tree_dot(t, t))
+        omega = dot(t, s) / _nz(dot(t, t))
         x = tree_axpy(alpha, phat, tree_axpy(omega, shat, x))
         r = tree_axpy(-omega, t, s)
         rho = rho_new
         k += 1
         if tol is not None:
-            rnorm = tree_norm(r)
+            rnorm = _norm(dot, r)
     if tol is None:
-        rnorm = tree_norm(r)
+        rnorm = _norm(dot, r)
     return _finish(x, k, rnorm, tol)
 
 
@@ -247,6 +255,7 @@ def gcr(
     *,
     maxiter: int,
     M: Optional[Callable] = None,
+    dot: Callable = tree_dot,
 ) -> KrylovResult:
     """Flexible GCR: minimizes the residual over the same Krylov space
     as FGMRES, tree-native, with a residual norm that cannot grow under
@@ -266,18 +275,18 @@ def gcr(
         w = A(z)
         # orthogonalize w against the previous (normalized) directions
         for zi, wi in zip(zs, ws):
-            beta = tree_dot(w, wi)
+            beta = dot(w, wi)
             w = tree_axpy(-beta, wi, w)
             z = tree_axpy(-beta, zi, z)
-        inv = torch.rsqrt(_nz(tree_dot(w, w)))
+        inv = torch.rsqrt(_nz(dot(w, w)))
         w = tree_scale(inv, w)
         z = tree_scale(inv, z)
-        alpha = tree_dot(w, r)
+        alpha = dot(w, r)
         x = tree_axpy(alpha, z, x)
         r = tree_axpy(-alpha, w, r)
         zs.append(z)
         ws.append(w)
-    return _finish(x, maxiter, tree_norm(r), None)
+    return _finish(x, maxiter, _norm(dot, r), None)
 
 
 # ----------------------------------------------------------------------
@@ -295,6 +304,7 @@ def fgmres(
     atol: float = 0.0,
     restart: int = 30,
     M: Optional[Callable] = None,
+    dot: Callable = tree_dot,
 ) -> KrylovResult:
     """Restarted flexible GMRES with modified Gram-Schmidt. The basis
     is kept per leaf (lists of trees), so no flattened (restart, n)
@@ -304,15 +314,15 @@ def fgmres(
     residual estimate |g[nit]|, as in the reference."""
     M = M or _identity
     x = tree_zeros_like(b) if x0 is None else x0
-    tol = _tolerance(b, rtol, atol)
+    tol = _tolerance(b, rtol, atol, dot)
     m = restart
     max_cycles = (maxiter + m - 1) // m
-    rnorm = float(tree_norm(tree_sub(b, A(x))))
+    rnorm = float(_norm(dot, tree_sub(b, A(x))))
     its = 0
     cyc = 0
     while cyc < max_cycles and rnorm > tol:
         r = tree_sub(b, A(x))
-        beta_t = tree_norm(r)
+        beta_t = _norm(dot, r)
         beta = float(beta_t)
         V = [tree_map(lambda a: a / _nz(beta_t), r)]
         Z = []
@@ -327,10 +337,10 @@ def fgmres(
             w = A(z)
             hcol_t = []
             for i in range(j + 1):
-                hij = tree_dot(V[i], w)
+                hij = dot(V[i], w)
                 w = tree_axpy(-hij, V[i], w)
                 hcol_t.append(hij)
-            hlast = tree_norm(w)
+            hlast = _norm(dot, w)
             hcol_t.append(hlast)
             hcol = torch.stack(hcol_t).double().tolist()
             V.append(tree_map(lambda a: a / _nz(hlast), w))

@@ -21,6 +21,18 @@ dimension, whatever the level's size. Under a device grid
 (``set_device_grid``) each level the grid splits evenly runs it sharded,
 one halo launch per shard (parallel/sharded.py).
 
+Under a rank-held grid (``grid=``, a ``parallel.mesh.RankGrid``) the
+finest level, and each coarser one the grid splits evenly, hold this
+rank's block (``held`` levels): their fields, volumes and kernel
+coefficients are the block's, their kernel the halo instance with edge
+planes from the neighbour ranks. Restriction and prolongation between
+two held levels stay inside a block (2:1 sums and piecewise-constant
+copies reach no cell past it). At the first level the grid does not
+split, or the coarsest, the residual is gathered to every rank
+(``RankGrid.gather``), which then solves that level and every one below
+it as one process does, with the same coarse pseudo-inverse built from
+the host-f64 tables; the correction comes back as this rank's block.
+
 A hierarchy in bfloat16 (the reduced-precision ABF preconditioner's
 Schur solve) keeps its fields, volumes, inverse diagonals, restriction,
 prolongation and V-cycle in bf16 and its kernel coefficient arrays in
@@ -51,14 +63,30 @@ class _Level:
     cellvol: torch.Tensor  # plain cell volumes (rhs symmetrization)
     inv_diag: torch.Tensor  # 1 / diag(Shat)
     host_dgst: tuple  # per-axis host-f64 D@Gst AxisStencils
-    host_vol: np.ndarray  # scale * cell volumes, host f64
+    host_vol: np.ndarray  # scale * cell volumes, host f64, of the whole level
     cheb_lmax: float | None = None  # Chebyshev smoothing upper bound
     # under a device grid: the level's sharded kernel by mode
     # (parallel/sharded.py), or None for the unsharded kernel
     sharded: dict | None = None
+    # under a rank-held grid: this rank's block of the level (its fields,
+    # volumes and coefficients are the block's), or None for the whole
+    block: object = None
+
+    @property
+    def shape(self) -> tuple:
+        """The shape of the level's fields here: its block's, or its own."""
+        return self.mesh.cell_shape if self.block is None else self.block.cell_shape
 
 
-def _build_level(mesh: CartMesh, axbcs, scale: float, dtype, device) -> _Level:
+# the axis along which each of the kernel's coefficient arrays runs
+# (poisson2d_coeffs: RX, RY, CY, CYb; poisson3d_coeffs: A0, C1, C2, H0-H2)
+_COEFF_AXES = {2: (0, 0, 1, 1), 3: (0, 1, 2, 0, 1, 2)}
+
+
+def _build_level(mesh: CartMesh, axbcs, scale: float, dtype, device,
+                 block=None) -> _Level:
+    """One level; with ``block`` (a ``parallel.mesh.Block``), that block's
+    rows of the host-f64 tables."""
     dim = mesh.dim
     host_dgst = []
     diag = np.zeros(mesh.cell_shape)
@@ -83,16 +111,22 @@ def _build_level(mesh: CartMesh, axbcs, scale: float, dtype, device) -> _Level:
         make, cls = cuda_stencil.poisson2d_coeffs, cuda_stencil.Poisson2DCoeffs
     else:
         make, cls = cuda_stencil.poisson3d_coeffs, cuda_stencil.Poisson3DCoeffs
-    coeffs = cls.from_host(make(mesh, host_dgst, host_vol), mesh.periodic,
-                           cuda_stencil.coef_dtype(dtype), device)
+    def cut(a):
+        return a if block is None else np.ascontiguousarray(block.cut(a))
+
+    arrays = make(mesh, host_dgst, host_vol)
+    if block is not None:
+        arrays = [a[..., block.cells(ax)] for a, ax in zip(arrays, _COEFF_AXES[dim])]
+    coeffs = cls.from_host(arrays, mesh.periodic, cuda_stencil.coef_dtype(dtype), device)
     return _Level(
         mesh=mesh,
         coeffs=coeffs,
-        vol=dev(host_vol),
-        cellvol=dev(vol),
-        inv_diag=dev(inv_diag),
+        vol=dev(cut(host_vol)),
+        cellvol=dev(cut(vol)),
+        inv_diag=dev(cut(inv_diag)),
         host_dgst=tuple(host_dgst),
         host_vol=host_vol,
+        block=block,
     )
 
 
@@ -121,6 +155,7 @@ class PoissonMG:
         max_levels: int = 16,
         coarse_size: int = 1024,
         smoother: str = "jacobi",  # jacobi | chebyshev
+        grid=None,
     ):
         if mesh.dim not in (2, 3):
             raise ValueError(f"PoissonMG takes 2-D or 3-D meshes, not "
@@ -133,20 +168,31 @@ class PoissonMG:
         self.smoother = smoother
         self._kernel = (cuda_stencil.poisson2d if mesh.dim == 2
                         else cuda_stencil.poisson3d)
-        # the shapes of the levels that run sharded (set_device_grid)
+        # the shapes of the levels that run sharded (set_device_grid, or
+        # the held levels of a rank-held grid)
         self.sharded_levels: tuple = ()
-        self.levels: list[_Level] = []
-        m = mesh
-        while True:
-            self.levels.append(_build_level(m, axbcs, scale, dtype, device))
-            if len(self.levels) >= max_levels:
-                break
-            if int(np.prod(m.N)) <= coarse_size:
-                break
-            mc = _coarsen_mesh(m)
+        meshes = [mesh]
+        while len(meshes) < max_levels and int(np.prod(meshes[-1].N)) > coarse_size:
+            mc = _coarsen_mesh(meshes[-1])
             if mc is None:
                 break
-            m = mc
+            meshes.append(mc)
+        # under a rank-held grid: the finest level, then each the grid
+        # splits evenly above the coarsest, hold this rank's block
+        self.grid = grid
+        self.nheld = 0
+        if grid is not None:
+            self.nheld = 1
+            while self.nheld < len(meshes) - 1 and grid.divides(meshes[self.nheld].N):
+                self.nheld += 1
+        self.levels: list[_Level] = [
+            _build_level(m, axbcs, scale, dtype, device,
+                         grid.block(m.N, m.periodic) if li < self.nheld else None)
+            for li, m in enumerate(meshes)]
+        if grid is not None:
+            self.sharded_levels = tuple(m.N for m in meshes[:self.nheld])
+            for lvl in self.levels[:self.nheld]:
+                lvl.sharded = self._held_kernels(grid, lvl)
 
         # Chebyshev smoothing bounds: lambda_max of the
         # Jacobi-preconditioned operator per level via power iteration
@@ -154,18 +200,17 @@ class PoissonMG:
         if smoother == "chebyshev":
             rng = np.random.default_rng(12345)
             for lvl in self.levels:
-                x = torch.as_tensor(
-                    rng.standard_normal(lvl.mesh.cell_shape), dtype=dtype,
-                    device=device,
-                )
+                x = rng.standard_normal(lvl.mesh.cell_shape)
+                if lvl.block is not None:
+                    x = np.ascontiguousarray(lvl.block.cut(x))
+                x = torch.as_tensor(x, dtype=dtype, device=device)
                 lmax = 2.0
                 for _ in range(12):
                     y = lvl.inv_diag * self._apply_level(lvl, x)
-                    nrm = float(torch.linalg.vector_norm(y))
+                    nrm = float(self._norm(lvl, y))
                     if nrm == 0.0:
                         break
-                    lmax = nrm / max(float(torch.linalg.vector_norm(x)),
-                                     1e-300)
+                    lmax = nrm / max(float(self._norm(lvl, x)), 1e-300)
                     x = y / nrm
                 lvl.cheb_lmax = 1.05 * lmax
 
@@ -196,6 +241,18 @@ class PoissonMG:
             # the coarse mat-vec must run in full f32, never TF32
             torch.backends.cuda.matmul.allow_tf32 = False
 
+    def _norm(self, lvl, x):
+        """||x|| over the level (added over the ranks on a held level)."""
+        if lvl.block is None:
+            return torch.linalg.vector_norm(x)
+        return torch.sqrt(self.grid.allsum(torch.sum(x * x)))
+
+    def _held_kernels(self, grid, lvl):
+        from fluca_tpu_torch.parallel.sharded import build_poisson_sharded
+
+        return {mode: build_poisson_sharded(grid, lvl, mode, self.omega)
+                for mode in cuda_stencil.POISSON_MODES}
+
     # ------------------------------------------------------------------
     def set_device_grid(self, grid) -> None:
         """Run each level that ``grid`` splits evenly through the sharded
@@ -207,13 +264,13 @@ class PoissonMG:
         is not carried over. ``grid=None``, or a degenerate grid of one
         shard, restores the unsharded kernels. ``sharded_levels`` lists
         the shapes of the levels that run sharded."""
-        from fluca_tpu_torch.parallel.sharded import build_poisson_sharded
-
+        if self.grid is not None:
+            raise ValueError("a hierarchy built on a rank-held grid holds its blocks: "
+                             "build another for another grid")
         for lvl in self.levels:
             lvl.sharded = None
             if grid is not None and grid.size > 1 and grid.divides(lvl.mesh.N):
-                lvl.sharded = {mode: build_poisson_sharded(grid, lvl, mode, self.omega)
-                               for mode in cuda_stencil.POISSON_MODES}
+                lvl.sharded = self._held_kernels(grid, lvl)
         self.sharded_levels = tuple(lvl.mesh.N for lvl in self.levels if lvl.sharded)
 
     def _poisson(self, lvl: _Level, mode, p, b=None, w=None):
@@ -287,17 +344,43 @@ class PoissonMG:
             e = torch.repeat_interleave(e, 2, dim=d)
         return e
 
+    def _gather(self, lvl, x):
+        """The level's global field from every rank's block ``x``."""
+        return self.grid.gather(x, lvl.mesh.N, lvl.mesh.periodic)
+
+    def _coarse_solve(self, lvl, b):
+        held = lvl.block is not None
+        if held:
+            b = self._gather(lvl, b)
+        pinv = self._coarse_pinv_acc
+        xf = torch.matmul(pinv, b.reshape(-1).to(pinv.dtype))
+        x = xf.to(b.dtype).reshape(lvl.mesh.cell_shape)
+        return lvl.block.cut(x).contiguous() if held else x
+
     def _vcycle(self, li, x, b):
         lvl = self.levels[li]
         if li == len(self.levels) - 1:
-            pinv = self._coarse_pinv_acc
-            xf = torch.matmul(pinv, b.reshape(-1).to(pinv.dtype))
-            return xf.to(b.dtype).reshape(lvl.mesh.cell_shape)
+            return self._coarse_solve(lvl, b)
         x = self._smooth(lvl, x, b, self.nu_pre)
         r = self._residual(lvl, x, b)
-        rc = self._restrict(r)
-        ec = self._vcycle(li + 1, torch.zeros_like(rc), rc)
-        x = x + self._prolong(ec)
+        coarse = self.levels[li + 1]
+        if lvl.block is None or coarse.block is not None:
+            # both levels whole, or both held: the transfer stays in a block
+            rc = self._restrict(r)
+            ec = self._vcycle(li + 1, torch.zeros_like(rc), rc)
+            x = x + self._prolong(ec)
+        elif self.grid.divides(coarse.mesh.N):
+            # the last held level: restrict each block, gather the coarse
+            # level, and take this rank's block of its correction
+            rc = self._gather(coarse, self._restrict(r))
+            ec = self._vcycle(li + 1, torch.zeros_like(rc), rc)
+            blk = self.grid.block(coarse.mesh.N, coarse.mesh.periodic)
+            x = x + self._prolong(blk.cut(ec))
+        else:
+            # a block of odd extent: gather the fine residual
+            rc = self._restrict(self._gather(lvl, r))
+            ec = self._vcycle(li + 1, torch.zeros_like(rc), rc)
+            x = x + lvl.block.cut(self._prolong(ec))
         x = self._smooth(lvl, x, b, self.nu_post)
         return x
 
