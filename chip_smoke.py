@@ -129,7 +129,31 @@ Phases:
      into the ledger; a planted edge-plane fault on every rank must be
      caught; steps/s, exchange ms and bytes per step and peak memory per
      rank (building and stepping) are printed beside the one-process
-     run's;
+     run's. Per-rank I/O (RANK_CASES' ``io``): the f64 cavity's ranks save
+     a "sharded" checkpoint after 3 steps, fresh rank-held solvers load it
+     shard-locally (each rank reads its block's bytes only) and run to 6
+     steps, equal to the uninterrupted run at max abs 0; one process loads
+     the same checkpoint, equal to rank 0's gather_state() at max abs 0;
+     planted faults (a manifest that lost a record, a checkpoint of
+     another grid) must be refused; BASELINE #5 saves after its steps and
+     reloads on the ranks at max abs 0, with the save's and the load's
+     seconds and GB/s per rank and the card's peak memory during the load
+     (no more than the stepping peak, and no more than RELOAD_ADDED_MAX x
+     the rank's block state above what it held); the hyperslab CGNS writer runs
+     where the host has h5py (the card's has none: it is held on the CPU);
+ 10c. launch: the entry points under ``python -m torch.distributed.run
+     --standalone`` (gloo, 2 ranks sharing the card), in one launch whose
+     ranks run this script with ``--launched``: each runs the app, then
+     bench_scaling, then ici_bytes as ``python -m`` runs them, then holds
+     every kernel call of the solvers they built against its plain
+     version (and a rank-held one against the one-card sharded calls) and
+     writes its launch ledger, merged into the parent's for phase_ledger.
+     The app on the 64^2 cavity over 2x1 ranks with -checkpoint (one
+     done: line; its checkpoint, loaded by one process, within
+     SPREAD_FACTOR x the one-process app run's distance from itself with
+     its dots over 8 row blocks), bench_scaling over 2 ranks and in one
+     process (--shards 4), ici_bytes over 2x1 ranks, their records
+     printed;
  11. probes: the bench and probe entry points (fluca_tpu_torch/bench.py,
      fluca_tpu_torch/examples/) and their kernels (ops/probes.py,
      csrc/probes.cu): copy_scale and copy_rolls against their plain
@@ -164,12 +188,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import importlib.util
 import io
 import itertools
 import json
 import re
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2757,18 +2783,30 @@ def phase_sharded(smi, entries, profile=False):
 # processes time-slice the card, so the 256^2 cavity steps at 0.145 steps/s
 # on (4, 2) and the 64^3 channel at 0.097 (H100 80GB HBM3, 700 W, my chip
 # run, PR 14); at 21 and 11 steps the phase took 515 s.
+# Per-rank I/O (``io``): "restart" saves a "sharded" checkpoint after
+# ``io_at`` steps, goes on to ``steps``, and a fresh rank-held solver loads
+# the checkpoint shard-locally and runs to ``steps`` again, to equal the
+# uninterrupted run at max abs 0; "reload" saves after the last step and
+# loads back into the solver, timing both and reading the card's peak
+# memory during the load.
 RANK_CASES = {
     "cavity32": dict(label="cavity 256^2 Re 100 f32 production", grid=(4, 2), steps=6,
                      check="spread"),
     "cavity64": dict(label="cavity 256^2 Re 100 f64 production", grid=(4, 2), steps=6,
-                     check="tight"),
+                     check="tight", io="restart", io_at=3),
     "channel64": dict(label="channel 64^3 dt 2e-3 f64 production", grid=(2, 2, 2),
                       steps=4, check="tight"),
     "channel512": dict(label="channel 512x256x256 stretch_y 2.0 dt 5e-5 f32 "
-                       "production(3, 8, 6)", grid=(2, 1, 1), steps=3, check="first"),
+                       "production(3, 8, 6)", grid=(2, 1, 1), steps=3, check="first",
+                       io="reload"),
 }
 RANK_TIMEOUT_S = 600
 SPREAD_FACTOR = 4.0
+# the most a rank-held load may add to the card's memory, in units of the
+# rank's block state: the new block state (1.0) and a margin; one field of
+# the whole grid of BASELINE #5 on (2, 1, 1) is 0.25 of it (2 blocks of one
+# field against the block's 8 fields)
+RELOAD_ADDED_MAX = 1.1
 
 
 def rank_model(case, grid=None):
@@ -2886,6 +2924,117 @@ def all_launches():
     return {k.name: k.launches for k in cuda_stencil.KERNELS}
 
 
+def rank_dir(args, *names):
+    """A path in the directory of the case's files (that of ``--ref``)."""
+    return os.path.join(os.path.dirname(args.ref), *names)
+
+
+def state_bytes(state) -> int:
+    return sum(x.numel() * x.element_size() for _, x, _ in state_leaves(state))
+
+
+def host_state(state) -> dict:
+    """CPU copies of a state's fields."""
+    return {k: tuple(x.cpu() for x in v) if isinstance(v, tuple) else v.cpu()
+            for k, v in state.items()}
+
+
+def rank_save(ns, args, gathered=False) -> dict:
+    """The rank-held "sharded" checkpoint of ``ns`` (with ``gathered``, rank
+    0 also saves the gathered state, for the parent's one-process load),
+    timed: the seconds from the first byte to the barrier that ends the
+    save, this rank's bytes and their rate."""
+    if gathered:
+        state = ns.gather_state()
+        if state is not None:
+            torch.save(host_state(state), rank_dir(args, f"{args.case}.gathered.pt"))
+        del state
+    ck = rank_dir(args, f"{args.case}.ck")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(ck, ns)
+    s = time.perf_counter() - t0
+    nbytes = state_bytes(ns.state)
+    return {"s": s, "bytes": nbytes, "gb_per_s": nbytes / s / 1e9, "step": ns.step_index}
+
+
+def rank_load(ns, args) -> dict:
+    """Load the case's checkpoint into ``ns``, shard-locally, timed: the
+    bytes read must be this rank's block's bytes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reader = load_checkpoint(rank_dir(args, f"{args.case}.ck"), ns)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    nbytes = state_bytes(ns.state)
+    if reader is None or reader.nbytes_read != nbytes:
+        raise AssertionError(f"rank {args.rank}: the shard-local load read "
+                             f"{None if reader is None else reader.nbytes_read} bytes, its "
+                             f"block holds {nbytes}")
+    return {"s": s, "bytes": nbytes, "nbytes_read": reader.nbytes_read,
+            "gb_per_s": nbytes / s / 1e9}
+
+
+def states_equal_over_ranks(grid, a, b) -> float:
+    """The max abs difference of two block states (b may be on the host),
+    the most over the ranks."""
+    d = max(float((x.double().cpu() - y.double().cpu()).abs().max())
+            for (_, x, _), (_, y, _) in zip(state_leaves(a), state_leaves(b)))
+    return float(grid.transport.allmax(torch.tensor([d], dtype=torch.float64,
+                                                    device="cuda"))[0])
+
+
+def rank_restart(ns, args, spec) -> dict:
+    """A fresh rank-held solver loads the checkpoint of io_at steps and runs
+    to ``steps``: every rank's state must equal the uninterrupted run's at
+    max abs 0. A checkpoint of another grid must be refused (ValueError)."""
+    grid = ns.device_grid
+    re = rank_model(args.case, grid)
+    try:
+        load_checkpoint(rank_dir(args, "other.ck"), re)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"rank {args.rank}: a checkpoint of another grid was loaded")
+    fig = rank_load(re, args)
+    fig["loaded_step"] = re.step_index
+    cuda_stencil.reset_launch_counts()
+    re.advance(spec["steps"] - re.step_index)
+    torch.cuda.synchronize()
+    fig["launches_per_step"] = {k: v / (spec["steps"] - fig["loaded_step"])
+                                for k, v in all_launches().items() if v}
+    fig["max_abs_vs_uninterrupted"] = states_equal_over_ranks(grid, re.state, ns.state)
+    fig["refused_other_grid"] = refused
+    if importlib.util.find_spec("h5py") is not None:
+        # the hyperslab CGNS file of the checkpoint's state, read back on the
+        # ranks (and by the parent in one process)
+        from fluca_tpu_torch.io.cgns import CGNSWriter, load_solution_cgns
+
+        re = rank_model(args.case, grid)
+        load_checkpoint(rank_dir(args, f"{args.case}.ck"), re)
+        with CGNSWriter(rank_dir(args, f"{args.case}.cgns"), re.mesh) as w:
+            w.write_solution(re)
+        back = rank_model(args.case, grid)
+        load_solution_cgns(rank_dir(args, f"{args.case}.cgns"), back)
+        fig["cgns_max_abs"] = states_equal_over_ranks(grid, back.state, re.state)
+    return fig
+
+
+def rank_reload(ns, args) -> dict:
+    """Load the checkpoint just saved back into ``ns``: equal to the saved
+    state at max abs 0; the card's peak memory during the load."""
+    saved = host_state(ns.state)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fig = rank_load(ns, args)
+    fig["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    fig["added_gib"] = (torch.cuda.max_memory_allocated() - before) / 2**30
+    fig["max_abs_vs_saved"] = states_equal_over_ranks(ns.device_grid, ns.state, saved)
+    return fig
+
+
 def rank_main(args) -> int:
     """One rank of phase_ranks: join the gloo group on cuda:0 (ranks that
     share one card), load the library the parent built, run the case
@@ -2947,13 +3096,28 @@ def rank_main(args) -> int:
             xs[k] += v
         adv = (t3 - t2, spec["steps"] - 1)
     else:
+        n1 = spec["steps"] - 1 if spec.get("io") != "restart" else spec["io_at"] - 1
         t2 = time.perf_counter()
-        ns.advance(spec["steps"] - 1)
+        ns.advance(n1)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         launches = all_launches()
         xs = transport.stats.as_dict()
-        adv = (t3 - t2, spec["steps"] - 1)
+        adv_s = t3 - t2
+        if n1 < spec["steps"] - 1:
+            # the checkpoint at io_at steps, then on to the last step
+            out["save"] = rank_save(ns, args, gathered=True)
+            transport.stats.reset()
+            cuda_stencil.reset_launch_counts()
+            t2 = time.perf_counter()
+            ns.advance(spec["steps"] - 1 - n1)
+            torch.cuda.synchronize()
+            adv_s += time.perf_counter() - t2
+            for k, v in all_launches().items():
+                launches[k] += v
+            for k, v in transport.stats.as_dict().items():
+                xs[k] += v
+        adv = (adv_s, spec["steps"] - 1)
         out["errors"], out["max_abs"] = rank_state_errors(ns, ref)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["build_peak_gib"] = build_peak
@@ -2965,6 +3129,22 @@ def rank_main(args) -> int:
     out.update(first_s=t1 - t0, advance_s=adv[0], steps_per_s=adv[1] / adv[0],
                launches=launches, exchange=xs, steps=spec["steps"],
                levels=[list(n) for n in ns.impl.mg.sharded_levels])
+    if spec.get("io") == "restart":
+        out["restart"] = rank_restart(ns, args, spec)
+    elif spec.get("io") == "reload":
+        out["save"] = rank_save(ns, args)
+        out["reload"] = rank_reload(ns, args)
+        # the load may add the new block state (the old one is freed as
+        # each field is replaced), never a field of the whole grid
+        block_gib = state_bytes(ns.state) / 2**30
+        if out["reload"]["peak_gib"] > out["peak_gib"] \
+                or out["reload"]["added_gib"] > RELOAD_ADDED_MAX * block_gib:
+            raise AssertionError(f"rank {args.rank}: the load's peak "
+                                 f"{out['reload']['peak_gib']:.3f} GiB (stepping peak "
+                                 f"{out['peak_gib']:.3f}), "
+                                 f"{out['reload']['added_gib']:.3f} GiB above what the rank "
+                                 f"held (bound {RELOAD_ADDED_MAX:g} x its block state "
+                                 f"{block_gib:.3f} GiB)")
     checks = rank_kernel_checks(ns, seed=41)
     out["checks"] = len(checks)
     out["max_abs_vs_one_card"] = max(c["max_abs_vs_one_card"] for c in checks)
@@ -3008,8 +3188,7 @@ def one_process_reference(case, tmp, entries):
         ns.step()
         torch.cuda.synchronize()
         fig["first_s"] = time.perf_counter() - t0
-        saved = {k: tuple(x.cpu() for x in ns.state[k]) if isinstance(ns.state[k], tuple)
-                 else ns.state[k].cpu() for k in ("v", "U", "p", "phalf")}
+        saved = host_state(ns.state)
         t0 = time.perf_counter()
         ns.advance(spec["steps"] - 1)
         torch.cuda.synchronize()
@@ -3017,8 +3196,7 @@ def one_process_reference(case, tmp, entries):
         fig["retention"] = float(ns.state["v"][0].abs().mean()) / u0
     else:
         fig["first_s"], adv, _ = timed_run(ns, spec["steps"] - 1)
-        saved = {k: tuple(x.cpu() for x in ns.state[k]) if isinstance(ns.state[k], tuple)
-                 else ns.state[k].cpu() for k in ("v", "U", "p", "phalf")}
+        saved = host_state(ns.state)
     fig.update(steps_per_s=(spec["steps"] - 1) / adv, peak_gib=torch.cuda.max_memory_allocated()
                / 2**30, build_peak_gib=build_peak)
     assert_finite(ns, f"{case}, one process")
@@ -3129,6 +3307,85 @@ def merge_rank_ledger(figs):
             kernels[name].checked |= {ast.literal_eval(k) for k in led["checked"]}
 
 
+def rank_io_report(case, spec, tmp, figs, smi):
+    """The per-rank I/O of ``case`` (``io`` of RANK_CASES): its save and
+    load per rank; for "restart", the restart against the uninterrupted
+    run (max abs 0, read on the ranks), one process's load of the ranks'
+    checkpoint against rank 0's gathered state (max abs 0), and a planted
+    fault (one manifest loses a record: IOError); for "reload", the
+    reload against the saved state (max abs 0) and the card's peak memory
+    during the load, and the checkpoint removed."""
+    label, ck = spec["label"], os.path.join(tmp, f"{case}.ck")
+    saves = [f["save"] for f in figs]
+    loads = [f["restart"] if spec["io"] == "restart" else f["reload"] for f in figs]
+    print(f"[rank-io] {label} on {spec['grid']} ({smi}): 'sharded' checkpoint at step "
+          f"{saves[0]['step']}, per rank: save "
+          + ", ".join(f"{x['s']:.4f} s ({x['bytes'] / 2**20:.1f} MiB, {x['gb_per_s']:.3f} "
+                      f"GB/s)" for x in saves)
+          + "; shard-local load "
+          + ", ".join(f"{x['s']:.4f} s ({x['nbytes_read'] / 2**20:.1f} MiB read = its "
+                      f"block, {x['gb_per_s']:.3f} GB/s)" for x in loads), flush=True)
+    if spec["io"] == "restart":
+        d = max(x["max_abs_vs_uninterrupted"] for x in loads)
+        print(f"[rank-io] {label}: restart from step {loads[0]['loaded_step']} to "
+              f"{spec['steps']} against the uninterrupted run, max abs {d:.3e} (every rank; "
+              f"launches per rank per step {loads[0]['launches_per_step']}); "
+              f"a checkpoint of another grid refused on every rank: "
+              f"{loads[0]['refused_other_grid']!r}", flush=True)
+        if d != 0.0:
+            raise AssertionError(f"{label}: the restart differs from the uninterrupted "
+                                 f"run by {d:.3e}")
+        one = rank_model(case)
+        if load_checkpoint(ck, one) is not None:
+            raise AssertionError("one process read the 'sharded' checkpoint by blocks")
+        gathered = torch.load(os.path.join(tmp, f"{case}.gathered.pt"), weights_only=True)
+        d1 = states_max_abs(host_state(one.state), gathered)
+        print(f"[rank-io] {label}: one process loads the ranks' checkpoint: max abs "
+              f"{d1:.3e} from rank 0's gather_state()", flush=True)
+        if d1 != 0.0:
+            raise AssertionError(f"{label}: one process's load differs by {d1:.3e}")
+        shutil.copytree(ck, ck + ".bad")
+        mpath = os.path.join(ck + ".bad", "manifest.p3.json")
+        with open(mpath) as fh:
+            records = json.load(fh)
+        del records["v0"]
+        with open(mpath, "w") as fh:
+            json.dump(records, fh)
+        try:
+            load_checkpoint(ck + ".bad", rank_model(case))
+        except IOError as e:
+            print(f"[rank-io] planted fault (manifest.p3 lost its record of v0): {e}",
+                  flush=True)
+        else:
+            raise AssertionError("a checkpoint whose manifest lost a record was loaded")
+        if "cgns_max_abs" in figs[0]:
+            from fluca_tpu_torch.io.cgns import load_solution_cgns
+
+            dc = max(f["restart"]["cgns_max_abs"] for f in figs)
+            one = rank_model(case)
+            load_solution_cgns(os.path.join(tmp, f"{case}.cgns"), one)
+            d2 = states_max_abs(host_state(one.state), gathered)
+            print(f"[rank-io] {label}: the hyperslab CGNS file read back on the ranks, max "
+                  f"abs {dc:.3e}; in one process, {d2:.3e} from gather_state()", flush=True)
+            if dc != 0.0 or d2 != 0.0:
+                raise AssertionError(f"{label}: CGNS round trip {dc:.3e}, {d2:.3e}")
+        else:
+            print("[rank-io] CGNS: the hyperslab writer and reader are held on the CPU "
+                  "(tests/test_torch_rank_io.py), not here: this host has no h5py",
+                  flush=True)
+        del one
+    else:
+        d = max(x["max_abs_vs_saved"] for x in loads)
+        print(f"[rank-io] {label}: reload max abs {d:.3e} from the saved state; the card's "
+              f"peak memory per rank during the load "
+              + ", ".join(f"{x['peak_gib']:.3f} GiB (+{x['added_gib']:.3f})" for x in loads)
+              + " against the stepping peak "
+              + ", ".join(f"{f['peak_gib']:.3f}" for f in figs), flush=True)
+        if d != 0.0:
+            raise AssertionError(f"{label}: the reload differs by {d:.3e}")
+        shutil.rmtree(ck)
+
+
 def phase_ranks(smi, entries):
     """The multi-process step: one block per torch.distributed rank, the
     ranks sharing the one card under gloo with their edge planes staged
@@ -3147,6 +3404,10 @@ def phase_ranks(smi, entries):
     with tempfile.TemporaryDirectory(dir=cuda_stencil.build_dir()) as tmp:
         for case, spec in RANK_CASES.items():
             ref_path, one = one_process_reference(case, tmp, entries)
+            if spec.get("io") == "restart":
+                # a checkpoint of another grid, for the ranks to refuse
+                save_checkpoint(os.path.join(tmp, "other.ck"), setup_cavity_2d(
+                    N=128, Re=100.0, dt=0.01, device="cuda", dtype=torch.float64))
             figs = run_rank_case(case, tmp, ref_path)
             merge_rank_ledger(figs)
             label, world = spec["label"], len(figs)
@@ -3221,6 +3482,8 @@ def phase_ranks(smi, entries):
                                              f"{one['spread'][k]:.4e}")
                 if not f0["retention"] >= RETENTION_MIN:
                     raise AssertionError(f"{label}: retention {f0['retention']}")
+            if spec.get("io"):
+                rank_io_report(case, spec, tmp, figs, smi)
             if case == "cavity32":
                 faults = [f["fault"] for f in figs]
                 print(f"[ranks] planted fault (one received edge plane of the finest "
@@ -3234,6 +3497,224 @@ def phase_ranks(smi, entries):
                         raise AssertionError(f"the planted rank fault passed: {x}")
     print(f"[ranks] done in {time.perf_counter() - t0:.2f} s", flush=True)
     return launches
+
+
+# ----------------------------------------------------------------------
+# the entry points under a launcher
+# ----------------------------------------------------------------------
+
+LAUNCH_TIMEOUT_S = 300
+APP_RANKS_ARGV = ["-device", "cuda", "-cart_grid_x", "64", "-cart_grid_y", "64",
+                  "-ns_max_steps", "3", "-ns_monitor"]
+# bench_scaling's base and timed steps here (small: the records are
+# printed, not gated); ici_bytes's rank grid here: (2, 1), the reference's
+# ICI_BYTES_2dev.json (the script's (4, 2) is run by hand)
+BENCH_BASE, BENCH_STEPS = 64, 1
+ICI_GRID = "2x1"
+
+
+def launched_main(args) -> int:
+    """One rank of phase_launchers' launch (started by
+    ``torch.distributed.run``): run each entry point of the ``--launched``
+    file as ``python -m`` runs it (``runpy``, as ``__main__``, with its
+    argv), keeping every NS they build; then hold every kernel call of
+    those solvers against its plain version (a rank-held solver also
+    against the one-card sharded calls, ``rank_kernel_checks``; a
+    one-process one through check_solver_stencils) and write this rank's
+    launch ledger to ``--out``. The entry points' own
+    ``finalize_distributed`` is put off until after the checks, which
+    need the process group."""
+    import runpy
+
+    from fluca_tpu_torch.ns.ns import NS
+    from fluca_tpu_torch.parallel import distributed
+    from fluca_tpu_torch.parallel.ranks import rank_kernel_checks
+
+    rank = int(os.environ["RANK"])
+    lib = cuda_stencil.build_dir() / cuda_stencil.source_hash() / cuda_stencil.LIB_NAME
+    if not lib.exists():
+        raise RuntimeError(f"rank {rank}: no kernel library at {lib}: the parent builds it "
+                           f"before it starts the launch")
+    with open(args.launched) as fh:
+        spec = json.load(fh)
+    built, init, finalize, argv = [], NS.__init__, distributed.finalize_distributed, sys.argv
+
+    def keep(self, *a, **kw):
+        init(self, *a, **kw)
+        built.append(self)
+
+    NS.__init__ = keep
+    distributed.finalize_distributed = lambda: None
+    try:
+        for module, margv in spec:
+            sys.argv = [module, *margv]
+            try:
+                runpy.run_module(module, run_name="__main__", alter_sys=True)
+            except SystemExit as e:
+                if e.code not in (None, 0):
+                    raise AssertionError(f"rank {rank}: {module} exited {e.code}") from e
+    finally:
+        NS.__init__, distributed.finalize_distributed, sys.argv = init, finalize, argv
+    checks, one = [], 0
+    entries = kernel_entries()
+    for i, ns in enumerate(built):
+        if ns.impl.rank_held:
+            checks += rank_kernel_checks(ns, seed=43 + i)
+        else:
+            with contextlib.redirect_stdout(io.StringIO()):
+                check_solver_stencils(entries, f"one process {ns.mesh.N}", ns)
+            one += 1
+    out = {"rank": rank, "solvers": len(built), "one_process": one, "checks": len(checks),
+           "max_abs_vs_one_card": max(c["max_abs_vs_one_card"] for c in checks),
+           "max_rel_vs_plain": max(c["rel_vs_plain"] for c in checks),
+           "ledger": {k.name: {"launched": sorted(map(repr, k.launched)),
+                               "checked": sorted(map(repr, k.checked))}
+                      for k in cuda_stencil.KERNELS}}
+    with open(os.path.join(args.out, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    finalize()
+    return 0
+
+
+def launch(nproc, argv, what):
+    """Run ``argv`` on ``nproc`` ranks under ``python -m
+    torch.distributed.run --standalone`` (a new session, killed whole where
+    it fails or outlasts LAUNCH_TIMEOUT_S); returns its output and the
+    JSON objects it printed, one per line."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), *argv]
+    env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
+    proc = subprocess.Popen(cmd, cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        out = b""
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    text = out.decode(errors="replace")
+    if proc.returncode != 0:
+        print(text[-6000:], flush=True)
+        raise AssertionError(f"{what}: exit {proc.returncode} ({' '.join(cmd[2:])})")
+    return text, [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def phase_launchers(smi, entries):
+    """The entry points under ``python -m torch.distributed.run`` (2 ranks
+    sharing the card under gloo), in one launch whose ranks run this
+    script (``launched_main``): the app on the 64^2 cavity over 2x1 ranks
+    with -checkpoint, then bench_scaling and ici_bytes over 2x1 ranks;
+    every kernel call of the solvers they built is checked in the ranks
+    and their ledgers merged into this process's, so that phase_ledger
+    fails on a key no check covered. The app prints one done: line; its
+    checkpoint, loaded by one process, is held against the one-process
+    app run within SPREAD_FACTOR x that run's distance from itself with
+    its dots over 8 row blocks (float32, FGMRES rtol 1e-5, as phase_ranks
+    holds its float32 cell). Then bench_scaling in one process
+    (--shards 4); the records are printed (no gate)."""
+    from fluca_tpu_torch.examples import bench_scaling
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=cuda_stencil.build_dir()) as tmp:
+        ck, spec = os.path.join(tmp, "app.ck"), os.path.join(tmp, "entries.json")
+        # the entry points the ranks run, in this order: (module, argv)
+        with open(spec, "w") as fh:
+            json.dump([("fluca_tpu_torch.app", APP_RANKS_ARGV + [
+                           "-parallel_grid", "2x1", "-parallel_backend", "gloo",
+                           "-checkpoint", ck]),
+                       ("fluca_tpu_torch.examples.bench_scaling",
+                        ["--backend", "gloo", "--base", str(BENCH_BASE), "--steps",
+                         str(BENCH_STEPS)]),
+                       ("fluca_tpu_torch.examples.ici_bytes",
+                        ["--backend", "gloo", "--grid", ICI_GRID])], fh)
+        text, recs = launch(2, [str(Path(__file__).resolve()), "--launched", spec,
+                                "--out", tmp], "the entry points on 2 ranks")
+        ta = time.perf_counter() - t0
+        figs = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                figs.append(json.load(fh))
+        merge_rank_ledger(figs)
+        d = max(f["max_abs_vs_one_card"] for f in figs)
+        print(f"[launch] app, bench_scaling and ici_bytes on 2 ranks (gloo, cuda:0; {smi}) "
+              f"in {ta:.2f} s: {sum(f['solvers'] for f in figs)} solvers over the ranks "
+              f"({sum(f['one_process'] for f in figs)} of one process), "
+              f"{sum(f['checks'] for f in figs)} rank kernel calls, max abs {d:.3e} from "
+              f"the one-card sharded calls' boxes, max rel "
+              f"{max(f['max_rel_vs_plain'] for f in figs):.3e} from the plain versions",
+              flush=True)
+        if d != 0.0:
+            raise AssertionError(f"the launched entry points: a rank's kernel call differs "
+                                 f"from the one-card sharded call by {d:.3e}")
+        for name in ("poisson2d_halo", "momentum2d_halo"):
+            e = entries[name]
+            e["max_abs_vs_one_card"] = max(e.get("max_abs_vs_one_card", 0.0), d)
+        done = [ln for ln in text.splitlines() if ln.startswith("done:")]
+        print("\n".join(ln for ln in text.splitlines()
+                        if ln.startswith(("parallel:", "step ", "done:"))), flush=True)
+        if len(done) != 1 or "CONVERGED_ITS at step 3" not in done[0]:
+            raise AssertionError(f"the app on ranks printed {len(done)} done: lines: {done}")
+        states = {}
+        for label in ("plain", "blocked", "ranks"):
+            argv = APP_RANKS_ARGV + (["-load_checkpoint", ck] if label == "ranks" else [])
+            with contextlib.redirect_stdout(io.StringIO()):
+                ns = app.build(argv)
+                if label == "plain":
+                    check_solver_stencils(entries, "app 64^2", ns)
+                if label == "blocked":
+                    ns.impl._dot = blocked_dot(8)
+                if label != "ranks":
+                    ns.solve()
+            assert_finite(ns, f"app 64^2 ({label})")
+            states[label] = ns.state
+        a = states["plain"]
+
+        def dists(st):
+            return {"v": vec_rel_err(st["v"], a["v"]), "U": vec_rel_err(st["U"], a["U"]),
+                    "p": rel_err(st["p"], a["p"])}
+
+        got, spread = dists(states["ranks"]), dists(states["blocked"])
+        print(f"[launch] app 64^2 f32 on 2x1 ranks, its checkpoint against the one-process "
+              f"app run: "
+              + ", ".join(f"{k} rel {got[k]:.4e} (the run's dots over 8 row blocks: "
+                          f"{spread[k]:.4e}; bound {SPREAD_FACTOR * spread[k]:.4e})"
+                          for k in got), flush=True)
+        for k in got:
+            if not got[k] <= SPREAD_FACTOR * spread[k] < 1.0:
+                raise AssertionError(f"the app's ranks vs one process: {k} rel {got[k]:.4e}")
+        del states, ns, a
+        gc.collect()
+        torch.cuda.empty_cache()
+    ranks = [r for r in recs if r.get("metric") == "weak_scaling_steps_per_sec"]
+    (ici,) = [r for r in recs if "per_rank_bytes_per_step" in r]
+    if len(ranks) != 1:
+        raise AssertionError(f"bench_scaling on 2 ranks printed {len(ranks)} records")
+    ref = ici["reference"]
+    print(f"[launch] ici_bytes 256^2 f32 production on {ICI_GRID} ranks: per rank per step "
+          f"{ici['per_rank_bytes_per_step']} bytes "
+          + ", ".join(f"{k} {v['bytes']} in {v['count']}" for k, v in ici["by_kind"].items())
+          + f"; SCALING.md's halo model {ici['scaling_md_halo_model_bytes']}; the "
+          f"reference's record ({ref['file']}, its HLO over virtual devices) "
+          f"{ref['per_device_bytes_per_step']}, {ref['all_gather_bytes']} of them "
+          f"all-gathers", flush=True)
+    tb = time.perf_counter()
+    # the kernels of the one-process grids at their shapes, for the ledger
+    for shape in ((1, 1), (2, 1), (2, 2)):
+        ns = bench_scaling.cavity((BENCH_BASE * shape[0], BENCH_BASE * shape[1]),
+                                  torch.device("cuda"))
+        ns.shard(make_device_grid(2, devices=["cuda"], shape=shape))
+        label = f"bench_scaling {ns.mesh.N} on {shape}"
+        if shape == (1, 1):
+            check_solver_stencils(entries, label, ns)
+        else:
+            check_sharded_solver(entries, label, ns)
+    recs = bench_scaling.one_process(BENCH_BASE, BENCH_STEPS, 4, torch.device("cuda"))
+    print(f"[launch] bench_scaling ({smi}; one process --shards 4 in "
+          f"{time.perf_counter() - tb:.2f} s, then the launch's 2 ranks): "
+          f"{json.dumps(recs + ranks)}", flush=True)
+    print(f"[launch] done in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -3472,7 +3953,8 @@ def phase_probes(entries):
     checked (check_probes) and the stencils at the path's own keys
     (check_probe_path_stencils); then, with every launch count at 0, the
     path itself: bench.spmv_roofline (4096^2), bench.poisson3d_roofline
-    (256^3), bench.sharded_1x1_ratio (4096^2, under its ceiling of 1.15),
+    (256^3), bench.sharded_1x1_ratio (4096^2, under its ceiling of 1.15)
+    and the host's time per call of its two calls,
     the probe512 sweep and its momentum timings, probe512split,
     probe_poisson512 at 512x256x256 and profile512 at PROFILE_GRID; the
     counts read after it. Then each probe kernel timed. Returns the
@@ -3490,6 +3972,7 @@ def phase_probes(entries):
     r2 = bench.spmv_roofline(N=SPMV_N, device="cuda")
     r3 = bench.poisson3d_roofline(N=POISSON3D_N, device="cuda")
     s = bench.sharded_1x1_ratio(N=SPMV_N, device="cuda")
+    host = bench.sharded_1x1_host_us(N=SPMV_N, device="cuda")
     p512 = probe512.run(device="cuda", copy_cases=COPY_CASES, momentum_shapes=MOMENTUM_SHAPES)
     split = probe512split.run(device="cuda", shape=BASELINE5, half=(POISSON3D_N,) * 3)
     pp = probe_poisson512.run(device="cuda", N=BASELINE5)
@@ -3512,7 +3995,9 @@ def phase_probes(entries):
               flush=True)
     print(f"[probes] bench.sharded_1x1_ratio 4096^2: {s['ratio']:.4f} (ceiling "
           f"{bench.PERF_CEILINGS['sharded_1x1_ratio']}), {s['us_sharded']:.2f} against "
-          f"{s['us_unsharded']:.2f} us", flush=True)
+          f"{s['us_unsharded']:.2f} us; the host's time per call (median of 15 x 100 "
+          f"calls) {host['us_host_sharded']:.2f} sharded, {host['us_host_unsharded']:.2f} "
+          f"unsharded", flush=True)
     if not s["ratio"] <= bench.PERF_CEILINGS["sharded_1x1_ratio"]:
         raise AssertionError(f"sharded_1x1_ratio {s['ratio']} above its ceiling")
     for label, r in (("probe512", p512), ("probe512split", split),
@@ -3602,9 +4087,13 @@ def main(argv=None) -> int:
     ap.add_argument("--case", choices=sorted(RANK_CASES), help=argparse.SUPPRESS)
     ap.add_argument("--ref", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
+    # one rank of phase_launchers' launch (torch.distributed.run starts it)
+    ap.add_argument("--launched", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.rank is not None:
         return rank_main(args)
+    if args.launched is not None:
+        return launched_main(args)
 
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3650,6 +4139,7 @@ def main(argv=None) -> int:
     fd_figures = phase_fd()
     launches_halo2d, launches_halo3d = phase_sharded(smi, entries, profile=args.profile)
     phase_ranks(smi, entries)
+    phase_launchers(smi, entries)
     probe_entries = {}
     for name, (replaces, also) in PROBE_REPLACES.items():
         probe_entries[name] = {"name": name, "route": "cuda",

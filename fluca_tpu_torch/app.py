@@ -14,6 +14,23 @@ device (``NS.shard``). Restart and output as the reference's main.c:
 ``-ns_load_solution_from_file F.cgns`` before the solve;
 ``-checkpoint DIR`` and ``-ns_view_solution F.cgns`` after it; a
 ``cgns:F`` solution viewer on the monitors (``-viewer_cgns_batch_size``).
+
+Under a launcher (``WORLD_SIZE`` > 1, or a process group already joined)
+the app runs one block of the grid per rank:
+
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m fluca_tpu_torch.app -cart_grid_x 64 -cart_grid_y 64 \
+      -parallel_grid 2x1 -parallel_backend gloo -ns_max_steps 3 -checkpoint DIR
+
+``-parallel_backend gloo|nccl`` names the backend (never inferred) and
+``-parallel_grid`` the rank grid (``auto`` factors the ranks), which the
+solver takes before it is built (``NS(grid=)``). A bare ``-device cuda``
+is the current card under gloo (ranks that share it) and
+``cuda:<LOCAL_RANK>`` under nccl. The checkpoint and CGNS options then
+write and read per-rank files (the "sharded" format, the hyperslab CGNS
+writer); the monitor, the ASCII viewer and the ``parallel:`` and
+``done:`` lines print on rank 0 only, the viewer's maxima taken over the
+ranks.
 """
 
 from __future__ import annotations
@@ -25,6 +42,39 @@ from fluca_tpu_torch.mesh.cart import CartMesh
 from fluca_tpu_torch.ns.bc import BCType, BoundaryCondition, zero_velocity_bc
 from fluca_tpu_torch.ns.ns import NS
 from fluca_tpu_torch.utils.options import global_options
+
+
+def _print_rank0(text: str) -> None:
+    """Print on rank 0 of the process group (every process where none was
+    joined), as PetscPrintf prints on the world communicator."""
+    from fluca_tpu_torch.parallel import distributed
+
+    if distributed.rank() == 0:
+        print(text)
+
+
+def _join_ranks(opts):
+    """Join the launcher's process group where one is asked for (a
+    ``WORLD_SIZE`` above 1) or already joined, with the backend that
+    ``-parallel_backend`` names; this rank's device where the run is over
+    more than one rank, else None."""
+    import os
+
+    import torch.distributed as dist
+
+    from fluca_tpu_torch.parallel import distributed
+
+    joined = dist.is_available() and dist.is_initialized()
+    if not joined and int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None
+    backend = opts.get_str("parallel_backend", None)
+    distributed.check_backend(backend)
+    if joined and dist.get_backend() != backend:
+        raise ValueError(f"-parallel_backend {backend}, but the process group this "
+                         f"process joined runs {dist.get_backend()}")
+    device = distributed.initialize_distributed(
+        backend=backend, device=opts.get_str("device", "cuda"))
+    return device if distributed.world_size() > 1 else None
 
 
 def build(argv) -> NS:
@@ -53,26 +103,42 @@ def build(argv) -> NS:
     bcs = [wall] * (2 * mesh.dim)
     bcs[3] = lid  # moving top lid (main.c:52-66)
 
+    spec = opts.get_str("parallel_grid") if opts.has("parallel_grid") else None
+    shape = (None if spec in (None, "", "auto", "true")
+             else tuple(int(x) for x in spec.split("x")))
+    device, grid = _join_ranks(opts), None
+    if device is not None:
+        if spec is None:
+            raise ValueError("a launch over ranks needs -parallel_grid auto | AxB[xC]: "
+                             "the grid of one block per rank")
+        from fluca_tpu_torch.parallel.mesh import make_device_grid
+
+        grid = make_device_grid(mesh.dim, shape=shape)
+    else:
+        device = opts.get_str("device", "cuda")
+
     ns = NS(
         mesh,
-        device=opts.get_str("device", "cuda"),
+        device=device,
         rho=400.0,
         mu=1.0,
         dt=0.002,
         max_steps=1000,
         bcs=bcs,
         options=opts,
+        grid=grid,
     )
     ns.set_from_options()
     ns.setup()
 
     # domain decomposition (the reference's mpiexec -n N x
-    # -cart_ranks_* path): -parallel_grid auto | AxB[xC]. The shards share
-    # the solver's one device; "auto" factors the devices given, one.
-    if opts.has("parallel_grid"):
-        spec = opts.get_str("parallel_grid")
-        shape = (None if spec in ("", "auto", "true")
-                 else tuple(int(x) for x in spec.split("x")))
+    # -cart_ranks_* path): -parallel_grid auto | AxB[xC]. On one process
+    # the shards share the solver's one device; "auto" factors the devices
+    # given, one.
+    if grid is not None:
+        _print_rank0(f"parallel: {grid.size} ranks ({grid.transport.backend}), grid "
+                     f"{dict(zip(grid.axis_names, grid.shape))}")
+    elif spec is not None:
         ns.shard(shape=shape)
         grid = ns.device_grid
         print(f"parallel: {len(set(grid.devices))} devices, grid "
@@ -92,6 +158,11 @@ def build(argv) -> NS:
 
 
 def main(argv=None) -> int:
+    import torch.distributed as dist
+
+    from fluca_tpu_torch.parallel import distributed
+
+    joined = dist.is_available() and dist.is_initialized()
     ns = build(sys.argv[1:] if argv is None else argv)
     opts = global_options()
 
@@ -112,7 +183,7 @@ def main(argv=None) -> int:
     set_monitors_from_options(ns, opts, writer_factory=solution_viewer)
 
     reason = ns.solve()
-    print(f"done: {reason.name} at step {ns.step_index}, t={ns.t:g}")
+    _print_rank0(f"done: {reason.name} at step {ns.step_index}, t={ns.t:g}")
     # a CGNS viewer writes its time series when closed
     for w in viewers:
         w.close()
@@ -131,7 +202,10 @@ def main(argv=None) -> int:
     if opts.get_bool("log_view", False):
         from fluca_tpu_torch.utils.profiling import global_log
 
-        print(global_log.view())
+        _print_rank0(global_log.view())
+    # leave a process group that this run joined (not one its caller did)
+    if not joined and dist.is_available() and dist.is_initialized():
+        distributed.finalize_distributed()
     return 0
 
 

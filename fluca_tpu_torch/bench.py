@@ -32,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import statistics
 import sys
 import time
 
@@ -170,22 +171,56 @@ def poisson3d_roofline(N=256, device="cuda") -> dict:
     }
 
 
-def sharded_1x1_ratio(N=4096, device="cuda") -> dict:
-    """The sharded Poisson kernel on a one-shard grid against the
-    unsharded kernel, at N^2 f32 (bench.py:196): the halo path must
-    cost nothing when the grid is trivial."""
+def _sharded_1x1_pair(N, device):
+    """The unsharded Poisson apply at N^2 f32, the sharded one on a
+    one-shard grid (bench.py:196), and an input for both."""
     mesh = CartMesh.create((N, N))
     mesh.set_uniform_coordinates(0.0, 1.0, 0.0, 1.0)
     mg = PoissonMG(mesh, [zero_velocity_bc()] * 4, scale=1.0, dtype=F32, device=device)
     f_sh = build_poisson_sharded(make_device_grid(2, [device]), mg.levels[0], mode="apply")
     gen = torch.Generator(device=device).manual_seed(0)
-    x = torch.randn((N, N), generator=gen, dtype=F32, device=device)
-    err = float((mg.apply_op(x) - f_sh(x)).abs().max())
+    return mg.apply_op, f_sh, torch.randn((N, N), generator=gen, dtype=F32, device=device)
+
+
+def sharded_1x1_ratio(N=4096, device="cuda") -> dict:
+    """The sharded Poisson kernel on a one-shard grid against the
+    unsharded kernel, at N^2 f32 (bench.py:196): the halo path must
+    cost nothing when the grid is trivial."""
+    f_un, f_sh, x = _sharded_1x1_pair(N, device)
+    err = float((f_un(x) - f_sh(x)).abs().max())
     if not err < 1e-6:
         raise RuntimeError(f"sharded(1x1) mismatch: max abs {err}")
-    t_un = slope_time_per_iter(mg.apply_op, x, 20, 150)
+    t_un = slope_time_per_iter(f_un, x, 20, 150)
     t_sh = slope_time_per_iter(f_sh, x, 20, 150)
     return {"ratio": t_sh / t_un, "us_unsharded": t_un * 1e6, "us_sharded": t_sh * 1e6}
+
+
+def host_us_per_call(fn, x, calls=100, repeats=15) -> float:
+    """The host's microseconds per call of ``fn`` (x -> fn(x), chained):
+    ``calls`` calls issued on an idle device, fewer than a card's launch
+    queue holds, so that the device never holds the host back; the
+    median of ``repeats``. A kernel whose call takes the host longer than
+    the kernel takes the card is bound by the host."""
+    fn(x)
+    times = []
+    for _ in range(repeats):
+        _sync(x)
+        t0 = time.perf_counter()
+        y = x
+        for _ in range(calls):
+            y = fn(y)
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    _sync(y)
+    return statistics.median(times)
+
+
+def sharded_1x1_host_us(N=4096, device="cuda") -> dict:
+    """The host's time per call of the two calls ``sharded_1x1_ratio``
+    times: its ratio stays at 1 while the sharded call's host time stays
+    below the kernel's time on the card."""
+    f_un, f_sh, x = _sharded_1x1_pair(N, device)
+    return {"us_host_unsharded": host_us_per_call(f_un, x),
+            "us_host_sharded": host_us_per_call(f_sh, x)}
 
 
 def _advance_throughput(ns, steps) -> float:

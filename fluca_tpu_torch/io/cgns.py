@@ -17,11 +17,21 @@ group with 33-byte ``name``/``label`` attributes, a ``type`` attribute
 (Fortran-ordered for arrays). Face-centered fields are UserDefinedData_t
 nodes (cartcgns.c:355-379).
 
+Every solution is written hyperslab by hyperslab, as the reference's
+multi-process writer (fluca_tpu/io/cgns.py:220-236, 296-403) and its
+collective cgp_field_write_data (flucacgns.c:241-242): rank 0 creates
+the nodes with full-shape float64 datasets and no data, then each rank
+in turn, in rank order with a barrier after each, opens the file and
+writes its block's box of every field (plain h5py has no MPI-IO, so the
+writes are serialised); rank 0 writes the time series at ``close``. On a
+rank-held NS (one block per ``torch.distributed`` rank) no rank holds a
+field of the whole grid; one process writes the one block of the whole
+grid, with no barriers. ``load_solution_cgns`` on a rank-held NS reads
+only the block's box of each dataset.
+
 All of it runs on the host, with numpy and h5py. h5py is imported only
 when a CGNS file is opened, so importing this module does not need it;
-without it every CGNS call raises ImportError. The multi-process
-hyperslab writer of the reference (``_write_solution_multiproc``) waits for
-ROADMAP queue 1, item 1b.
+without it every CGNS call raises ImportError.
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fluca_tpu_torch.io.checkpoint import refuse_rank_held
+from fluca_tpu_torch.parallel.mesh import Block
 
 
 def _require_h5py():
@@ -84,6 +94,17 @@ def _string_node(parent, name, label, s: str):
     return g
 
 
+def _empty_field_node(parent, name, label, global_shape):
+    """An R8 DataArray node with a full-shape dataset and no data: the
+    create step of the hyperslab write, before any rank writes (the
+    reference's cgp_field_write, flucacgns.c:241). The dataset is in
+    Fortran (reversed) order, as ``_node`` stores ``data.T``."""
+    g = parent.create_group(name)
+    _set_node_attrs(g, name, label, "R8")
+    g.create_dataset(" data", shape=tuple(reversed(global_shape)), dtype=np.float64)
+    return g
+
+
 _COMP = ("X", "Y", "Z")
 _FACE_NAMES = ("IFaceCenteredSolution", "JFaceCenteredSolution",
                "KFaceCenteredSolution")
@@ -111,6 +132,10 @@ class CGNSWriter:
         self._steps: list[int] = []
         self._times: list[float] = []
         self._n_in_batch = 0
+        # the RankGrid of the rank-held NS this writer writes hyperslabs
+        # of, None on one process (set by each write; the file is closed
+        # between writes)
+        self._ranks = None
 
     # -- file lifecycle ------------------------------------------------
     def _current_name(self) -> str:
@@ -198,40 +223,104 @@ class CGNSWriter:
         _set_node_attrs(g, "FlowSolutionPointers", "DataArray_t", "C1")
         g.create_dataset(" data", data=ptrs.T)
 
+    def _reopen(self):
+        """Open the current file for appending nodes."""
+        self._file = self._h5py.File(self._current_name(), "r+")
+        self._base = self._file["Base"]
+        self._zone = self._base["Zone"]
+
+    def _barrier(self) -> None:
+        """Wait for every rank of a rank-held writer (nothing on one
+        process)."""
+        if self._ranks is not None:
+            self._ranks.transport.barrier()
+
     def close(self):
-        if self._file is not None:
+        """Write the time series and close the file. A rank-held writer's
+        ranks must all call it: rank 0 writes, then a barrier."""
+        if self._steps and (self._ranks is None or self._ranks.rank == 0):
+            self._reopen()
             self._finalize_time_series()
             self._file.close()
             self._file = None
+        self._barrier()
+        self._ranks = None
+        self._steps, self._times = [], []
 
     # -- solution write ------------------------------------------------
-    def write_solution(self, ns) -> None:
-        """One FlowSolution<step> with the cell fields, and the
-        face-normal velocity as UserDefinedData (cartcgns.c:293-401)."""
-        refuse_rank_held(ns, "CGNSWriter.write_solution")
-        if self._file is None:
-            self._open()
-        elif self.batch_size is not None and self._n_in_batch >= self.batch_size:
-            self.close()
-            self._batch_index += 1
-            self._open()
+    def _fields(self, ns):
+        """(path under the zone, face axis or None, tensor) of every field
+        of one output step (``_solution_fields``, fluca_tpu/io/cgns.py:296)."""
+        step, state, dim = ns.step_index, ns.state, self.mesh.dim
+        out = [(f"FlowSolution{step}/Velocity{_COMP[c]}", None, state["v"][c])
+               for c in range(dim)]
+        out.append((f"FlowSolution{step}/Pressure", None, state["p"]))
+        out.append((f"FlowSolution{step}/PressureHalfStep", None, state["phalf"]))
+        out += [(f"{_FACE_NAMES[d]}{step}/FaceNormalVelocity", d, state["U"][d])
+                for d in range(dim)]
+        return out
 
-        step, t = ns.step_index, ns.t
-        state = ns.state
-        dim = self.mesh.dim
-        self._write_cellinfo(getattr(getattr(ns, "impl", None), "grid", None))
+    def _create_nodes(self, ns):
+        """The nodes of one output step: FlowSolution<step> with its
+        GridLocation, the face UserDefinedData nodes, and every field's
+        DataArray as an empty full-shape float64 dataset, for the blocks
+        to fill."""
+        step, whole = ns.step_index, Block.whole(self.mesh.N, self.mesh.periodic)
         sol = _node(self._zone, f"FlowSolution{step}", "FlowSolution_t")
         _string_node(sol, "GridLocation", "GridLocation_t", "CellCenter")
-        for c in range(dim):
-            _node(sol, f"Velocity{_COMP[c]}", "DataArray_t", _host(state["v"][c]))
-        _node(sol, "Pressure", "DataArray_t", _host(state["p"]))
-        _node(sol, "PressureHalfStep", "DataArray_t", _host(state["phalf"]))
-        for d in range(dim):
-            ud = _node(self._zone, f"{_FACE_NAMES[d]}{step}", "UserDefinedData_t")
-            _node(ud, "FaceNormalVelocity", "DataArray_t", _host(state["U"][d]))
-        self._steps.append(step)
-        self._times.append(t)
+        for d in range(self.mesh.dim):
+            _node(self._zone, f"{_FACE_NAMES[d]}{step}", "UserDefinedData_t")
+        for path, face, _ in self._fields(ns):
+            parent, leaf = path.rsplit("/", 1)
+            _empty_field_node(self._zone[parent], leaf, "DataArray_t", whole.shape(face))
+
+    def write_solution(self, ns) -> None:
+        """One FlowSolution<step> with the cell fields, and the
+        face-normal velocity as UserDefinedData (cartcgns.c:293-401),
+        written hyperslab by hyperslab (``_write_solution_multiproc``,
+        fluca_tpu/io/cgns.py:322-403): rank 0 creates the step's nodes
+        with empty full-shape datasets (and the file, with the mesh and
+        the CellInfo map, at the first write of a batch) and closes it;
+        then each rank in rank order opens it and writes its block's box
+        of every field as float64, a barrier after each. On a rank-held NS
+        every rank must call it; one process writes the one block of the
+        whole grid."""
+        impl = getattr(ns, "impl", None)
+        ranks = impl.grid if impl is not None and impl.rank_held else None
+        if self._steps and ranks is not self._ranks:
+            raise ValueError("a CGNS writer writes the blocks of one grid")
+        self._ranks = ranks
+        if self._steps and self.batch_size is not None and self._n_in_batch >= self.batch_size:
+            self.close()
+            self._ranks = ranks
+            self._batch_index += 1
+        new_file = not self._steps
+        if new_file:
+            self._n_in_batch = 0
+        m = self.mesh
+        if ranks is None or ranks.rank == 0:
+            if new_file:
+                self._open()
+            else:
+                self._reopen()
+            self._write_cellinfo(getattr(impl, "grid", None))
+            self._create_nodes(ns)
+            self._file.close()
+            self._file = None
+        self._steps.append(ns.step_index)
+        self._times.append(ns.t)
         self._n_in_batch += 1
+        self._barrier()
+        blk = Block.whole(m.N, m.periodic) if ranks is None else ranks.block(m.N, m.periodic)
+        fields = self._fields(ns)
+        for r in range(1 if ranks is None else ranks.size):
+            if ranks is None or r == ranks.rank:
+                with self._h5py.File(self._current_name(), "r+") as f:
+                    zone = f["Base"]["Zone"]
+                    for path, face, t in fields:
+                        idx = blk.index(face)
+                        zone[path][" data"][tuple(reversed(idx))] = _host(t).T
+            self._barrier()
 
     def __enter__(self):
         return self
@@ -263,38 +352,48 @@ def load_solution_cgns(filename: str, ns, step: int | None = None):
     """Restore the fields, step and time of ``step`` (the last one if
     None) into ``ns`` (NSLoadSolution -> VecLoad_Cart_CGNS,
     nssol.c:174-204, cartcgns.c:644-758), cast to the solver's dtype on
-    its device."""
-    refuse_rank_held(ns, "load_solution_cgns")
-    data = read_cgns(filename)
-    steps = sorted(data["solutions"])
-    if not steps:
-        raise ValueError(f"no FlowSolution nodes in {filename}")
-    if step is None:
-        step = steps[-1]
-    sol = data["solutions"][step]
-    dim = ns.mesh.dim
-    for d in range(dim):
-        if sol[f"Velocity{_COMP[d]}"].shape != ns.mesh.cell_shape:
-            raise ValueError(
-                f"grid size mismatch on CGNS load: "
-                f"{sol[f'Velocity{_COMP[d]}'].shape} vs {ns.mesh.cell_shape}"
-            )
+    its device. On a rank-held NS every rank reads only its block's box of
+    each dataset (the reference's per-rank hyperslab VecLoad)."""
+    h5py = _require_h5py()
     ns.setup()
+    m = ns.mesh
+    grid = ns.impl.grid if ns.impl.rank_held else None
+    blk = Block.whole(m.N, m.periodic) if grid is None else grid.block(m.N, m.periodic)
+    with h5py.File(filename, "r") as f:
+        base = f["Base"]
+        zone = base["Zone"]
+        steps = sorted(int(k[len("FlowSolution"):]) for k in zone
+                       if k.startswith("FlowSolution") and k != "FlowSolutionPointers")
+        if not steps:
+            raise ValueError(f"no FlowSolution nodes in {filename}")
+        if step is None:
+            step = steps[-1]
+        sol = zone[f"FlowSolution{step}"]
+        for d in range(m.dim):
+            shape = sol[f"Velocity{_COMP[d]}"][" data"].shape[::-1]
+            if shape != m.cell_shape:
+                raise ValueError(
+                    f"grid size mismatch on CGNS load: {shape} vs {m.cell_shape}")
 
-    def dev(a):
-        # the reader's arrays are transposed views of Fortran-order data;
-        # the kernels take C-contiguous fields
-        return torch.tensor(np.ascontiguousarray(a), dtype=ns.dtype, device=ns.device)
+        def dev(node, face=None):
+            # the dataset is Fortran-ordered: its box is the reversed index,
+            # transposed back; the kernels take C-contiguous fields
+            a = node[" data"][tuple(reversed(blk.index(face)))].T
+            return torch.tensor(np.ascontiguousarray(a), dtype=ns.dtype, device=ns.device)
 
-    ns.set_solution(
-        v=tuple(dev(sol[f"Velocity{_COMP[d]}"]) for d in range(dim)),
-        U=tuple(dev(data["U"][step][d]) for d in range(dim)),
-        p=dev(sol["Pressure"]),
-        phalf=dev(sol["PressureHalfStep"]),
-    )
+        state = dict(
+            v=tuple(dev(sol[f"Velocity{_COMP[d]}"]) for d in range(m.dim)),
+            U=tuple(dev(zone[f"{_FACE_NAMES[d]}{step}"]["FaceNormalVelocity"], d)
+                    for d in range(m.dim)),
+            p=dev(sol["Pressure"]),
+            phalf=dev(sol["PressureHalfStep"]),
+        )
+        times = (np.asarray(base["BaseIterativeData"]["TimeValues"][" data"])
+                 if "BaseIterativeData" in base else None)
+    ns.set_solution(**state)
     ns.step_index = int(step)
-    if "times" in data:
-        ns.t = float(data["times"][steps.index(step)])
+    if times is not None:
+        ns.t = float(times[steps.index(step)])
     return ns
 
 

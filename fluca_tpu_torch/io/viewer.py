@@ -10,6 +10,10 @@ from __future__ import annotations
 
 import sys
 
+import torch
+
+from fluca_tpu_torch.parallel.distributed import rank
+
 # PetscViewerFormats subset the reference validates against
 # (viewerbasic.c:86-92); unknown names are an error there too.
 VIEWER_FORMATS = (
@@ -26,6 +30,10 @@ FILE_MODES = ("read", "write", "append", "update", "append_update")
 
 
 class AsciiViewer:
+    """One line per solution: step, time, max |u| and max |p|. Where ranks
+    each hold a block the maxima are taken over the ranks and rank 0
+    prints (or writes) the line; every rank must call ``write_solution``."""
+
     def __init__(self, filename: str | None = None, mode: str = "write",
                  fmt: str = "default"):
         self.filename = filename
@@ -33,16 +41,25 @@ class AsciiViewer:
         self.mode = mode
         # FILE_MODE_WRITE truncates at open (viewerbasic.c:78-80);
         # later writes through the same viewer append.
-        if filename and mode == "write":
+        if filename and mode == "write" and rank() == 0:
             open(filename, "w").close()
 
+    @staticmethod
+    def maxima(ns) -> tuple[float, float]:
+        """max |u| and max |p| (over the ranks where they hold blocks)."""
+        m = torch.stack([ns.state["v"][0].abs().max(), ns.state["p"].abs().max()])
+        if ns.impl is not None and ns.impl.rank_held:
+            m = ns.device_grid.transport.allmax(m)
+        return float(m[0]), float(m[1])
+
     def write_solution(self, ns) -> None:
-        u = ns.state["v"][0]
-        p = ns.state["p"]
+        umax, pmax = self.maxima(ns)
+        if rank() != 0:
+            return
         line = (
             f"step={ns.step_index} t={ns.t:g} "
-            f"|u|max={float(u.abs().max()):.6g} "
-            f"|p|max={float(p.abs().max()):.6g}"
+            f"|u|max={umax:.6g} "
+            f"|p|max={pmax:.6g}"
         )
         if self.filename:
             with open(self.filename, "a") as out:

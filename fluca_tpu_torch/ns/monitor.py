@@ -10,12 +10,17 @@ nsmon.c:72-99), wired from options -ns_monitor /
 
 from __future__ import annotations
 
+from fluca_tpu_torch.parallel.distributed import rank
+
 
 def monitor_default(ns) -> None:
+    """The step line, printed on rank 0 only where ranks each hold a block
+    (PetscPrintf on the world communicator)."""
     extra = ""
     if ns.last_diag is not None:
         extra = f"  ksp_its={int(ns.last_diag['ksp_iters'])}"
-    print(f"step {ns.step_index}  dt {ns.dt:g}  time {ns.t:g}{extra}")
+    if rank() == 0:
+        print(f"step {ns.step_index}  dt {ns.dt:g}  time {ns.t:g}{extra}")
 
 
 def make_solution_monitor(writer, interval: int = 1):

@@ -57,7 +57,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
@@ -188,18 +188,24 @@ def coef_dtype(dtype: torch.dtype) -> torch.dtype:
 def _check_tensors(name, ref, fields, coeffs=None):
     """Every tensor on ``ref``'s device and contiguous; the fields in
     ``ref``'s dtype, the coefficient arrays in its ``coef_dtype``."""
-    if ref.dtype not in _DTYPE_SUFFIX:
-        raise TypeError(f"{name}: dtype {ref.dtype} not supported "
+    dtype, device = ref.dtype, ref.device
+    if dtype not in _DTYPE_SUFFIX:
+        raise TypeError(f"{name}: dtype {dtype} not supported "
                         f"(float32, float64 or bfloat16)")
-    want = {label: (t, ref.dtype) for label, t in fields.items()}
-    want.update((label, (t, coef_dtype(ref.dtype)))
-                for label, t in (coeffs or {}).items())
-    for label, (t, dtype) in want.items():
+    _check_group(name, fields, device, dtype)
+    if coeffs:
+        _check_group(name, coeffs, device, coef_dtype(dtype))
+
+
+def _check_group(name, tensors, device, dtype):
+    """Every tensor of {label: tensor} ``tensors`` a contiguous ``dtype``
+    tensor on ``device``."""
+    for label, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: {label} is not a tensor")
-        if t.device != ref.device:
+        if t.device != device:
             raise ValueError(f"{name}: {label} on {t.device}, "
-                             f"expected {ref.device}")
+                             f"expected {device}")
         if t.dtype != dtype:
             raise TypeError(f"{name}: {label} is {t.dtype}, "
                             f"expected {dtype}")
@@ -218,18 +224,23 @@ def _check_coeff_dtype(name, t):
 def _launch_target(name, x) -> str:
     """'cpu' -> the plain version; 'cuda' -> the kernel; anything else
     is refused."""
-    if x.device.type == "cpu":
+    device = x.device
+    if device.type == "cpu":
         return "cpu"
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {x.device}")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"{name}: tensor on {x.device} but the current "
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    if device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: tensor on {device} but the current "
                          f"CUDA device is {torch.cuda.current_device()}")
     return "cuda"
 
 
 def _stream_ptr(x) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The handle of the current stream on ``x``'s card: the raw handle,
+    not ``torch.cuda.current_stream``, which builds a Stream object on
+    every call. The host's time per launch bounds the small and sharded
+    kernels."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 class _Kernel:
@@ -267,6 +278,14 @@ class _Kernel:
         self.launches_by_dtype[sfx] += 1
         self.last_key = (key[0], sfx, key[1])
         self.launched.add(self.last_key)
+
+    def _launch_entry(self, go, *args) -> None:
+        """``_launch`` with the entry point, suffix and ledger key looked
+        up once (``go``: a ``HaloLaunch``)."""
+        _check_cuda(self.name, go.entry(*args))
+        self.launches_by_dtype[go.sfx] += 1
+        self.last_key = go.ledger_key
+        self.launched.add(go.ledger_key)
 
     def _entry(self, sfx):
         """The C entry point of instance ``sfx``, with its argument
@@ -309,23 +328,24 @@ def _tridiagonal(st, n):
     return out.get(-1, z), out.get(0, z), out.get(1, z)
 
 
+# the fields each Poisson mode reads besides p
+_POISSON_NEEDS = {"apply": (), "residual": ("b",), "smooth": ("b", "w")}
+
+
 def _poisson_fields(name, mode, p, b, w, ndim):
     """Check the mode's arguments; returns the fields the mode reads."""
-    if mode not in POISSON_MODES:
+    need = _POISSON_NEEDS.get(mode)
+    if need is None:
         raise ValueError(f"{name}: unknown mode {mode!r}")
-    need = {"apply": (), "residual": ("b",), "smooth": ("b", "w")}[mode]
-    given = {"b": b, "w": w}
-    for k in ("b", "w"):
-        if (k in need) != (given[k] is not None):
-            raise ValueError(
-                f"{name}: mode {mode!r} takes "
-                f"{'p, ' + ', '.join(need) if need else 'p'}"
-            )
+    if ("b" in need) != (b is not None) or ("w" in need) != (w is not None):
+        raise ValueError(
+            f"{name}: mode {mode!r} takes "
+            f"{'p, ' + ', '.join(need) if need else 'p'}"
+        )
     if not isinstance(p, torch.Tensor) or p.dim() != ndim:
         raise ValueError(f"{name}: p must be a {ndim}-D tensor")
     fields = {"p": p}
-    for k in need:
-        t = given[k]
+    for k, t in zip(need, (b, w)):
         if not isinstance(t, torch.Tensor) or t.shape != p.shape:
             raise ValueError(f"{name}: {k} must have shape {tuple(p.shape)}")
         fields[k] = t
@@ -1270,15 +1290,16 @@ def _check_halo_call(name, layout, ref, fields):
     others, all with the strides of the first field's."""
     if ref.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: no {ref.dtype} instance (float32 or float64)")
+    halo, D = layout.halo_axes, len(layout.shape)
     est = None
     for label, (x, edges) in fields.items():
-        if tuple(x.shape) != layout.shape:
+        if x.shape != layout.shape:
             raise ValueError(f"{name}: {label} has shape {tuple(x.shape)}, the "
                              f"layout {layout.shape}")
-        if len(edges) != len(layout.shape):
-            raise ValueError(f"{name}: {label} needs edges for {len(layout.shape)} axes")
+        if len(edges) != D:
+            raise ValueError(f"{name}: {label} needs edges for {D} axes")
         for a, e in enumerate(edges):
-            if a not in layout.halo_axes:
+            if a not in halo:
                 if e is not None:
                     raise ValueError(f"{name}: {label} has edge planes on axis {a}, "
                                      f"which is not split")
@@ -1293,6 +1314,8 @@ def _check_halo_call(name, layout, ref, fields):
                     raise ValueError(f"{name}: {label} {side} edge of axis {a} must "
                                      f"be a {ref.dtype} tensor of shape "
                                      f"{layout.edge_shape(a)} on {ref.device}")
+        if not halo:
+            continue
         strides = tuple(t.stride() for e in edges if e is not None for t in e)
         if est is None:
             est = strides
@@ -1410,13 +1433,34 @@ class PoissonHaloCall:
     """What a Poisson halo call needs of its mode, coefficients, layout
     and omega, checked against each other once
     (``_PoissonHaloKernel.prepare``): with each shard's coefficient
-    addresses, at its first index."""
+    addresses, at its first index, and the launch constants of each
+    signature it has run with (``_PoissonHaloKernel.run``)."""
 
     mode: str
     c: object  # Poisson2DCoeffs or Poisson3DCoeffs
     layout: HaloLayout
     omega: float
     coeff_ptrs: tuple
+    launches: dict = field(default_factory=dict, compare=False, repr=False)
+
+
+@dataclass(frozen=True)
+class HaloLaunch:
+    """A prepared Poisson halo call's constants for fields of one dtype
+    and strides and edge planes of one set of strides: the instance's
+    entry point, its suffix and ledger key, the geometry array, per shard
+    its cell offset, edge-plane offsets and pointer array (the coefficient
+    addresses filled in; a call writes the others, and the entry point
+    copies the array before it returns), and the launch plan where every
+    address is aligned to 16 bytes and where one is not (the same plan for
+    the 3-D kernel)."""
+
+    entry: object
+    sfx: str
+    ledger_key: tuple
+    geom: object
+    shards: tuple
+    plans: tuple
 
 
 class _PoissonHaloKernel(_Kernel):
@@ -1424,7 +1468,8 @@ class _PoissonHaloKernel(_Kernel):
     layout, p's edges[, b][, w][, omega]) -> the global Sp | b - Sp |
     smoothed p, one launch per shard. A caller that makes many calls on
     one level ``prepare``s them once and ``run``s each: the host's time
-    per call bounds the sharded path where the kernels are fast."""
+    per call bounds the sharded path where the kernels are fast, so a
+    call looks its launch constants up once per signature."""
 
     instances = ("f32", "f64")
 
@@ -1434,9 +1479,10 @@ class _PoissonHaloKernel(_Kernel):
         self._unsharded = unsharded
         self._plain = plain
         self.argtypes = [_CI, _PP, _PL, ctypes.c_double, ctypes.POINTER(_CI), _VP]
-        # p b w, the coefficient arrays, out, and the lo and hi edge planes
-        # of each axis
-        self._ptrs = _VP * (4 + (4 if ndim == 2 else 6) + 2 * ndim)
+        # p b w, the coefficient arrays, out (at _out), and the lo and hi edge
+        # planes of each axis
+        self._out = 3 + (4 if ndim == 2 else 6)
+        self._ptrs = _VP * (self._out + 1 + 2 * ndim)
         super().__init__()
 
     @property
@@ -1463,6 +1509,27 @@ class _PoissonHaloKernel(_Kernel):
                  omega=0.0):
         return self.run(self.prepare(mode, c, layout, omega), p, edges, b, w)
 
+    def constants(self, call: PoissonHaloCall, p, edges) -> HaloLaunch:
+        """The launch constants of ``call`` on p and its edge planes."""
+        layout, sfx = call.layout, _DTYPE_SUFFIX[p.dtype]
+        geom, shards, offsets_aligned = _halo_launch(layout, p.stride(), p.element_size(),
+                                                     _edge_strides(edges))
+        if self.ndim == 3:
+            plan = poisson3d_launch_plan(layout.local, p.dtype)
+            plans = (plan, plan)
+        else:
+            # p, b, w, out and the edge rows of axis 0 are read 16 bytes at
+            # a time where their offsets and addresses are aligned and the
+            # rows contiguous
+            vec = offsets_aligned and (edges[0] is None or edges[0][0].stride(1) == 1)
+            plans = (poisson2d_launch_plan(layout.local, p.dtype, vec),
+                     poisson2d_launch_plan(layout.local, p.dtype, False))
+        key = layout.key
+        return HaloLaunch(self._entry(sfx), sfx, (key[0], sfx, key[1]), geom,
+                          tuple((cell, eoffs, self._ptrs(None, None, None, *cptrs))
+                                for (_, cell, eoffs), cptrs in zip(shards, call.coeff_ptrs)),
+                          tuple(x.as_c() for x in plans))
+
     def run(self, call: PoissonHaloCall, p, edges, b=None, w=None):
         """The ``prepare``d call on p with its edge planes ``edges``."""
         c, layout = call.c, call.layout
@@ -1473,24 +1540,21 @@ class _PoissonHaloKernel(_Kernel):
         _check_halo_call(self.name, layout, p, {"p": (p, edges)})
         if _launch_target(self.name, p) == "cpu":
             return self._plain(call.mode, p, c, layout, edges, b, w, call.omega)
+        sig = (p.dtype, p.stride(), _edge_strides(edges))
+        go = call.launches.get(sig)
+        if go is None:
+            go = call.launches[sig] = self.constants(call, p, edges)
         out = torch.empty_like(p)
-        geom, shards, offsets_aligned = _halo_launch(layout, p.stride(), p.element_size(),
-                                                     _edge_strides(edges))
         cells = (p.data_ptr(), None if b is None else b.data_ptr(),
                  None if w is None else w.data_ptr(), out.data_ptr())
         ebases = _edge_bases(edges)
-        if self.ndim == 3:
-            plan = poisson3d_launch_plan(layout.local, p.dtype)
-        else:
-            # p, b, w, out and the edge rows of axis 0, read 16 bytes at a time
-            plan = poisson2d_launch_plan(layout.local, p.dtype, offsets_aligned and _rows_aligned(
-                (*cells, *(ebases[0] or ())), edges))
-        plan, key, stream = plan.as_c(), layout.key, _stream_ptr(p)
-        for (_, cell, eoffs), cptrs in zip(shards, call.coeff_ptrs):
-            ptrs = self._ptrs(*(x if x is None else x + cell for x in cells[:3]), *cptrs,
-                              cells[3] + cell, *_edge_ptrs(ebases, eoffs))
-            self._launch(p.dtype, key, POISSON_MODES[call.mode], ptrs, geom, call.omega, plan,
-                         stream)
+        plan = go.plans[0] if _aligned((*cells, *(ebases[0] or ()))) else go.plans[1]
+        mode, stream, k = POISSON_MODES[call.mode], _stream_ptr(p), self._out
+        for cell, eoffs, ptrs in go.shards:
+            ptrs[:3] = [x if x is None else x + cell for x in cells[:3]]
+            ptrs[k] = cells[3] + cell
+            ptrs[k + 1:] = _edge_ptrs(ebases, eoffs)
+            self._launch_entry(go, mode, ptrs, go.geom, call.omega, plan, stream)
         return out
 
 

@@ -16,7 +16,9 @@ The backend is named by the caller, never inferred:
   copied back. Nothing falls back from one transport to the other.
 
 ``Transport`` counts what crosses: the exchanges (batches of planes sent
-and received), their bytes and host time, the sums and the gathers.
+and received), their bytes and host time, the sums, maxima and gathers
+and the bytes this rank gives to them, and the host time of the
+collectives (barriers included).
 """
 
 from __future__ import annotations
@@ -53,10 +55,11 @@ def initialize_distributed(backend=None, init_method=None, world_size=None, rank
 
     ``backend`` must be named ("nccl" or "gloo") for a multi-process run.
     ``device`` defaults to ``cuda:<local rank>`` and raises where that
-    card is absent; pass ``"cpu"`` for CPU ranks, or ``"cuda:0"`` with
-    gloo for ranks that share one card. "nccl" needs one card per rank:
-    ranks that would share one raise ValueError before the group is
-    joined. Returns this process's device."""
+    card is absent; a bare ``"cuda"`` is ``cuda:<local rank>`` under nccl
+    and the current card (ranks that share it) under gloo; pass ``"cpu"``
+    for CPU ranks. "nccl" needs one card per rank: ranks that would share
+    one raise ValueError before the group is joined. Returns this
+    process's device."""
     global _device
     if _device is not None:
         return _device
@@ -71,23 +74,26 @@ def initialize_distributed(backend=None, init_method=None, world_size=None, rank
     if rank is None or world_size is None:
         raise ValueError("initialize_distributed: give rank and world_size (or run under "
                          "a launcher that sets RANK and WORLD_SIZE)")
-    if backend not in _BACKENDS:
-        raise ValueError(f"initialize_distributed: name the backend, one of {_BACKENDS} "
-                         f"(got {backend!r}); it is never inferred")
+    check_backend(backend)
     local_rank = _env_int("LOCAL_RANK")
     local_rank = rank if local_rank is None else local_rank
     local_size = _env_int("LOCAL_WORLD_SIZE")
     local_size = world_size if local_size is None else local_size
+    dev = torch.device("cuda", local_rank) if device is None else torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        # a bare "cuda": this rank's card under nccl, the current one under gloo
+        if backend != "nccl":
+            _check_card(dev)
+        dev = torch.device("cuda", local_rank if backend == "nccl"
+                           else torch.cuda.current_device())
     if backend == "nccl":
         # one card per rank, checked before the group is joined
         cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        dev = torch.device(device) if device is not None else torch.device("cuda", local_rank)
-        if dev.type != "cuda" or local_size > cards or (dev.index or 0) != local_rank:
+        if dev.type != "cuda" or local_size > cards or dev.index != local_rank:
             raise ValueError(
                 f"initialize_distributed: nccl needs one card per rank: {local_size} ranks "
                 f"on this host, {cards} cards, rank {rank} asks for {dev}; ranks that share "
                 f"a card (or run on the CPU) take backend='gloo'")
-    dev = torch.device(device) if device is not None else _default_device(local_rank)
     if dev.type == "cuda":
         _check_card(dev)
         torch.cuda.set_device(dev)
@@ -96,6 +102,13 @@ def initialize_distributed(backend=None, init_method=None, world_size=None, rank
                             rank=rank, **kw)
     _device = dev
     return _device
+
+
+def check_backend(backend) -> None:
+    """Raise ValueError unless ``backend`` names one of the backends."""
+    if backend not in _BACKENDS:
+        raise ValueError(f"initialize_distributed: name the backend, one of {_BACKENDS} "
+                         f"(got {backend!r}); it is never inferred")
 
 
 def _default_device(local_rank: int) -> torch.device:
@@ -138,13 +151,20 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
+def rank() -> int:
+    """This process's rank in the default process group (0 where none was
+    joined): the rank that prints, as PETSc prints on the world
+    communicator."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 def process_info() -> dict:
     """The reference's four keys: this process's index and the number of
     processes, its devices (one: each rank runs on one device) and the
     devices of all ranks."""
     n = world_size()
     return {
-        "process_index": dist.get_rank() if dist.is_available() and dist.is_initialized() else 0,
+        "process_index": rank(),
         "process_count": n,
         "local_devices": 1,
         "global_devices": n,
@@ -155,14 +175,18 @@ def process_info() -> dict:
 class TransportStats:
     """What crossed between ranks since the last ``reset``: the exchanges
     (batches of planes), the bytes this rank sent in them and their host
-    time (staging copies included); the sums and the gathers with their
-    host time."""
+    time (staging copies included); the sums (a max over the ranks counts
+    as one) and the gathers, the bytes this rank gave to them (its own
+    part, once), and the host time of the collectives (barriers
+    included)."""
 
     exchanges: int = 0
     exchange_bytes: int = 0
     exchange_s: float = 0.0
     sums: int = 0
+    sum_bytes: int = 0
     gathers: int = 0
+    gather_bytes: int = 0
     collective_s: float = 0.0
 
     def reset(self) -> None:
@@ -242,19 +266,39 @@ class Transport:
         dist.all_gather(parts, src, group=self.group)
         parts = [p.to(self.device).reshape(shape) for p in parts]
         self.stats.gathers += 1
+        self.stats.gather_bytes += x.numel() * x.element_size()
         self.stats.collective_s += time.perf_counter() - t0
         return parts
+
+    def _reduce(self, x, op):
+        """``op`` folded over every rank's ``x`` in rank order (every rank
+        holds the same bits), counted as one sum."""
+        parts = self.all_gather(x)
+        tot = parts[0]
+        for p in parts[1:]:
+            tot = op(tot, p)
+        st = self.stats
+        st.gathers -= 1
+        st.gather_bytes -= x.numel() * x.element_size()
+        st.sums += 1
+        st.sum_bytes += x.numel() * x.element_size()
+        return tot
 
     def allsum(self, x):
         """The sum over ranks of ``x`` (a tensor of any shape), added in
         rank order so that every rank holds the same bits."""
-        parts = self.all_gather(x)
-        tot = parts[0]
-        for p in parts[1:]:
-            tot = tot + p
-        self.stats.gathers -= 1
-        self.stats.sums += 1
-        return tot
+        return self._reduce(x, torch.add)
+
+    def allmax(self, x):
+        """The elementwise max over ranks of ``x``, on every rank."""
+        return self._reduce(x, torch.maximum)
+
+    def barrier(self) -> None:
+        """Wait until every rank of the group is here (the counterpart of
+        ``multihost_utils.sync_global_devices``)."""
+        t0 = time.perf_counter()
+        dist.barrier(group=self.group)
+        self.stats.collective_s += time.perf_counter() - t0
 
 
 class PendingExchange:

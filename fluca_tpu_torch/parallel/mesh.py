@@ -159,11 +159,19 @@ class Block:
         """The block's faces along ``a`` as a slice of the grid's."""
         return slice(self.start[a], self.start[a] + self.nfaces(a))
 
+    def index(self, face=None) -> tuple[slice, ...]:
+        """The block's box in a global cell field (``face=None``) or in a
+        face array of axis ``face``."""
+        return tuple(self.faces(a) if a == face else self.cells(a) for a in range(self.dim))
+
+    def shape(self, face=None) -> tuple[int, ...]:
+        """The block's extents in a cell field or a face array of ``face``."""
+        return self.cell_shape if face is None else self.face_shape(face)
+
     def cut(self, x, face=None):
         """The block of a global cell field ``x`` (``face=None``) or of a
         face array of axis ``face`` (numpy or torch; a view)."""
-        idx = tuple(self.faces(a) if a == face else self.cells(a) for a in range(self.dim))
-        return x[idx]
+        return x[self.index(face)]
 
 
 @dataclass(frozen=True, eq=False)
@@ -253,14 +261,12 @@ class RankGrid:
             buf.narrow(face, 0, x.shape[face]).copy_(x)
             x = buf
         parts = self.transport.all_gather(x)
-        out = x.new_empty(tuple(n + (0 if face != a or periodic[a] else 1)
-                                for a, n in enumerate(N)))
+        out = x.new_empty(Block.whole(N, periodic).shape(face))
         for r, part in enumerate(parts):
             blk = self.block(N, periodic, r)
             if pad:
                 part = part.narrow(face, 0, blk.nfaces(face))
-            out[tuple(blk.faces(a) if a == face else blk.cells(a)
-                      for a in range(self.dim))] = part
+            out[blk.index(face)] = part
         return out
 
     def allsum(self, x):

@@ -49,6 +49,8 @@ def field_edges(layout: cuda_stencil.HaloLayout, x, grid=None):
     """The edge planes of ``x`` on each halo axis (None on the others):
     from the neighbour ranks where ``grid`` is a ``RankGrid`` (``layout``
     its ``halo_layout``), else from the shards of ``layout.grid``."""
+    if not layout.halo_axes:
+        return (None,) * len(layout.shape)
     if isinstance(grid, RankGrid):
         return tuple(rank_slabs(x, grid, a, layout.periodic[a])
                      if a in layout.halo_axes else None for a in range(len(layout.shape)))
@@ -80,7 +82,7 @@ class ShardedPoisson:
         return field_edges(self.layout, p, self.grid)
 
     def __call__(self, p, b=None, w=None):
-        return self.launch(p, self.edges(p), b, w)
+        return self.kernel.run(self.call, p, self.edges(p), b, w)
 
     def launch(self, p, edges, b=None, w=None):
         """The kernels on edge planes ``edges`` of p (``field_edges``)."""

@@ -89,6 +89,18 @@ def test_roofline_cells_on_the_cpu():
     assert set(s) == SHARDED_KEYS and s["ratio"] > 0
 
 
+def test_sharded_1x1_host_time_on_the_cpu():
+    """The host's time per call of the two calls sharded_1x1_ratio times,
+    and host_us_per_call's chained calls."""
+    h = bench.sharded_1x1_host_us(N=32, device=CPU)
+    assert set(h) == {"us_host_unsharded", "us_host_sharded"}
+    assert all(v > 0 for v in h.values())
+    calls = []
+    assert bench.host_us_per_call(lambda x: calls.append(x) or x + 1, torch.zeros(()),
+                                  calls=4, repeats=3) > 0
+    assert len(calls) == 1 + 4 * 3 and float(calls[-1]) == 3.0
+
+
 def test_step_cells_on_the_cpu():
     for rate in (bench.cavity_throughput(N=16, steps=2, device=CPU),
                  bench.cavity3d_throughput(N=(8, 8, 8), steps=2, device=CPU),

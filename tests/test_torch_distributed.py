@@ -237,8 +237,10 @@ def test_rank_refusals(tmp_path, monkeypatch):
     """No fallback: nccl with ranks that share a card raises before any
     group is joined, naming gloo; a backend must be named; over two ranks
     a grid of another size, a mesh the grid does not split and another
-    device than the rank's each raise; the per-shard checkpoint format
-    still raises, naming item 1b."""
+    device than the rank's each raise; a per-shard checkpoint without its
+    manifest raises IOError, and over two ranks an explicit "native" save,
+    a manifest that lost a record and a checkpoint of another grid each
+    raise."""
     monkeypatch.setattr(distributed, "_device", None)
     for dev in ("cuda:0", None):
         with pytest.raises(ValueError, match="gloo"):
@@ -250,8 +252,8 @@ def test_rank_refusals(tmp_path, monkeypatch):
                                            world_size=2, rank=0, device="cpu")
     assert not (tmp_path / "never").exists()
     assert distributed._device is None
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        _read_fields(str(tmp_path), {"format": "sharded"})
+    with pytest.raises(IOError, match="no manifest of process 0"):
+        _read_fields(str(tmp_path), {"format": "sharded", "nprocs": 1})
     run_ranks(tmp_path, 2, "refusals:2x1")
 
 

@@ -25,8 +25,10 @@ import torch
 import fluca_tpu.native
 from fluca_tpu.io import cgns as j_cgns
 from fluca_tpu.io.checkpoint import load_checkpoint as j_load
+from fluca_tpu.io.checkpoint import _save_checkpoint_sharded as j_save_sharded
 from fluca_tpu.io.checkpoint import save_checkpoint as j_save
 from fluca_tpu.mesh.cart import CartMesh as JMesh
+from fluca_tpu.models.cavity import setup_cavity_2d as j_cavity
 from fluca_tpu.models.tgv import setup_taylor_green_2d as j_tgv
 from fluca_tpu.utils import debug as j_debug
 from fluca_tpu_torch import app
@@ -67,10 +69,6 @@ def assert_same_bits(a, b):
 
 def read_meta(ck):
     return json.loads((ck / "meta.json").read_text())
-
-
-def write_meta(ck, meta):
-    (ck / "meta.json").write_text(json.dumps(meta))
 
 
 def tgv_pair(steps=2, N=8):
@@ -168,12 +166,16 @@ def test_torch_checkpoint_refusals(tmp_path):
     path.write_bytes(bytes(raw[:-8]))
     with pytest.raises(IOError, match="bytes"):
         t_load(str(tmp_path / "ck"), fresh)
-    # the reference's per-shard format waits for the distributed transport
-    meta = read_meta(tmp_path / "ck")
-    meta["format"] = "sharded"
-    write_meta(tmp_path / "ck", meta)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        t_load(str(tmp_path / "ck"), fresh)
+    # the per-shard format: one process refuses to write it, and loads
+    # fluca_tpu's per-shard files of the same state bit for bit
+    with pytest.raises(ValueError, match="rank-held grid"):
+        t_save(str(tmp_path / "x"), t, fmt="sharded")
+    j, _ = tgv_pair(steps=1)
+    j_save_sharded(str(tmp_path / "sh"), j)
+    assert read_meta(tmp_path / "sh")["format"] == "sharded"
+    assert t_load(str(tmp_path / "sh"), fresh) is None
+    assert (fresh.step_index, fresh.t) == (j.step_index, j.t)
+    assert_same_bits(fresh.state, j.state)
 
 
 def test_torch_checkpoint_casts_to_solver_dtype(tmp_path):
@@ -445,15 +447,23 @@ def test_torch_app_cgns_restart(tmp_path, capsys):
     assert set(j_cgns.read_cgns(str(tmp_path / "mon_1.cgns"))["solutions"]) == {3}
 
 
-def test_torch_app_still_lacks_sharded_checkpoints(tmp_path, capsys):
-    """A per-shard checkpoint of the reference waits for the distributed
-    transport (ROADMAP queue 1, item 1) and keeps raising."""
-    run_app(["-ns_max_steps", "1", "-checkpoint", str(tmp_path / "ck")], capsys)
-    meta = read_meta(tmp_path / "ck")
-    meta["format"] = "sharded"
-    write_meta(tmp_path / "ck", meta)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 1"):
-        app.main(APP + ["-ns_max_steps", "2", "-load_checkpoint", str(tmp_path / "ck")])
+def test_torch_app_loads_sharded_checkpoint(tmp_path, capsys):
+    """-load_checkpoint of fluca_tpu's per-shard files (the app's 1-step
+    state, sharded over (2, 2) virtual devices and written shard by shard)
+    and 1 more step equals 2 steps in one run at max abs 0."""
+    run_app(["-ns_max_steps", "2", "-checkpoint", str(tmp_path / "full")], capsys)
+    run_app(["-ns_max_steps", "1", "-checkpoint", str(tmp_path / "half")], capsys)
+    j = j_cavity(N=8, dtype=jnp.float64)
+    j_load(str(tmp_path / "half"), j)
+    j.shard(shape=(2, 2))
+    j_save_sharded(str(tmp_path / "sh"), j)
+    assert read_meta(tmp_path / "sh")["format"] == "sharded"
+    out = run_app(["-ns_max_steps", "2", "-load_checkpoint", str(tmp_path / "sh"),
+                   "-checkpoint", str(tmp_path / "cont")], capsys)
+    assert "done: CONVERGED_ITS at step 2" in out
+    for name in NAMES:
+        assert (tmp_path / "full" / f"{name}.bin").read_bytes() == \
+            (tmp_path / "cont" / f"{name}.bin").read_bytes(), name
 
 
 # ----------------------------------------------------------------------

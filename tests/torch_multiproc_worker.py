@@ -16,11 +16,32 @@ Run: python torch_multiproc_worker.py <rank> <world> <init file> <case>
   16 cells, against the one-process V-cycle's box;
 - ``exchange:<grid>``: the halo functions on a 16x12 field;
 - ``refusals:<grid>``: the refusals of a rank-held grid (a grid that does
-  not split the mesh, or comes after the whole solver was built).
+  not split the mesh, or comes after the whole solver was built) and of
+  its per-rank I/O (an explicit "native" save, a manifest that lost a
+  record, a checkpoint of another grid);
+- ``io:<model>:<grid>``: the model's 3 steps, then a "sharded" checkpoint
+  (``<out dir>/ck``) and a hyperslab CGNS file (``<out dir>/sol.cgns``)
+  written by the ranks; fresh rank-held solvers load each shard-locally,
+  and the checkpoint's restart runs 3 more steps beside the uninterrupted
+  run; writes this rank's blocks, the bytes it read, the gathered 3-step
+  state (rank 0) and the restart's max abs difference; then a CGNS time
+  series of steps 6 and 7 with a batch of one step (``mon_%d.cgns``);
+- ``refio:<grid>``: the 16^2 cavity loads ``<out dir>/refck`` (written by
+  fluca_tpu's per-shard writer) shard-locally, and ``<out dir>/refnative``
+  (its native writer, the same state) whole;
+- ``app:<grid>``: the app (float64) on the 16^2 cavity over the ranks, 3
+  steps with the monitors and ``-checkpoint <out dir>/appck``; first
+  without ``-parallel_backend``, then without ``-parallel_grid``, each of
+  which must raise; then the viewer's maxima of the checkpoint's state;
+- ``tools:<grid>``: ``bench_scaling.ranks`` and ``ici_bytes.measure`` on
+  the 16^2 cavity.
 
 Imports no JAX.
 """
 
+import json
+import os
+import shutil
 import sys
 
 import numpy as np
@@ -29,6 +50,7 @@ import torch
 torch.set_num_threads(1)
 
 from fluca_tpu_torch.interop import state_to_numpy  # noqa: E402
+from fluca_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from fluca_tpu_torch.models.cavity import setup_cavity_2d  # noqa: E402
 from fluca_tpu_torch.models.channel import setup_channel_3d  # noqa: E402
 from fluca_tpu_torch.ns.cnlinear import CNLinearConfig  # noqa: E402
@@ -157,13 +179,131 @@ def run_refusals(shape, out):
     # a device other than this rank's
     expect_raise(ValueError, lambda: make_device_grid(2, devices=["meta"], shape=shape),
                  "this rank's device")
-    # per-rank checkpoints wait for their slice
-    from fluca_tpu_torch.io.checkpoint import save_checkpoint
-
+    # per-rank I/O: a format of whole fields, a manifest that lost this
+    # rank's record of p, a checkpoint of another grid
     ns = setup_cavity_2d(N=16, Re=100.0, dt=0.01, dtype=torch.float64, device="cpu",
                          grid=grid)
-    expect_raise(NotImplementedError, lambda: save_checkpoint(out + ".ck", ns), "item 1b")
+    ck = os.path.join(os.path.dirname(out), "ck")
+    expect_raise(ValueError, lambda: save_checkpoint(ck, ns, fmt="native"), "gather_state")
+    save_checkpoint(ck, ns)
+    transport = distributed.default_transport()
+    if grid.rank == 0:
+        shutil.copytree(ck, ck + ".bad")
+        mpath = os.path.join(ck + ".bad", "manifest.p1.json")
+        with open(mpath) as fh:
+            records = json.load(fh)
+        del records["p"]
+        with open(mpath, "w") as fh:
+            json.dump(records, fh)
+        save_checkpoint(ck + ".other", setup_cavity_2d(N=8, Re=100.0, dt=0.01,
+                                                       dtype=torch.float64, device="cpu"))
+    transport.barrier()
+    if grid.rank == 1:
+        expect_raise(IOError, lambda: load_checkpoint(ck + ".bad", ns), "do not cover")
+    else:
+        load_checkpoint(ck + ".bad", ns)
+    expect_raise(ValueError, lambda: load_checkpoint(ck + ".other", ns), "grid size mismatch")
     np.savez(out, ok=np.array([1]))
+
+
+def flat(state, prefix=""):
+    """name -> numpy copy of every field of a torch state."""
+    st = state_to_numpy(state)
+    out = {f"{prefix}v{c}": a for c, a in enumerate(st["v"])}
+    out.update({f"{prefix}U{d}": a for d, a in enumerate(st["U"])})
+    out.update({f"{prefix}p": st["p"], f"{prefix}phalf": st["phalf"]})
+    return out
+
+
+def max_abs(a, b):
+    """The max abs difference of two states' fields (``flat`` dicts)."""
+    return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+
+def run_io(model, shape, out):
+    from fluca_tpu_torch.io.cgns import CGNSWriter, load_solution_cgns
+
+    out_dir = os.path.dirname(out)
+    ck, sol = os.path.join(out_dir, "ck"), os.path.join(out_dir, "sol.cgns")
+    ns = make_model(model, shape)
+    ns.advance(3)
+    arrays = flat(ns.state)
+    full = ns.gather_state()
+    if full is not None:
+        arrays.update(flat(full, "g_"))
+    save_checkpoint(ck, ns)
+    with CGNSWriter(sol, ns.mesh) as w:
+        w.write_solution(ns)
+    three = flat(ns.state)
+    ns.advance(3)
+    re = make_model(model, shape)
+    reader = load_checkpoint(ck, re)
+    arrays["nbytes_read"] = np.array([reader.nbytes_read])
+    arrays["block_bytes"] = np.array([sum(a.nbytes for a in three.values())])
+    arrays["loaded_vs_saved"] = np.array([max_abs(flat(re.state), three)])
+    arrays["step_t"] = np.array([re.step_index, re.t])
+    re.advance(3)
+    arrays["restart_vs_uninterrupted"] = np.array([max_abs(flat(re.state), flat(ns.state))])
+    cg = make_model(model, shape)
+    load_solution_cgns(sol, cg)
+    arrays["cgns_vs_saved"] = np.array([max_abs(flat(cg.state), three)])
+    arrays["cgns_step_t"] = np.array([cg.step_index, cg.t])
+    # a monitor's time series over the ranks, one file per step
+    with CGNSWriter(os.path.join(out_dir, "mon_%d.cgns"), ns.mesh, batch_size=1) as w:
+        w.write_solution(ns)
+        ns.advance(1)
+        w.write_solution(ns)
+    np.savez(out, **arrays)
+
+
+def run_refio(shape, out):
+    ns = make_model("cavity", shape)
+    reader = load_checkpoint(os.path.join(os.path.dirname(out), "refck"), ns)
+    arrays = flat(ns.state)
+    arrays["block_bytes"] = np.array([sum(a.nbytes for a in arrays.values())])
+    arrays["nbytes_read"] = np.array([reader.nbytes_read])
+    # the same state from fluca_tpu's native files: read whole, cut here
+    native = make_model("cavity", shape)
+    assert load_checkpoint(os.path.join(os.path.dirname(out), "refnative"), native) is None
+    arrays["native_vs_sharded"] = np.array([max_abs(flat(native.state), flat(ns.state))])
+    arrays["coords"] = np.array(ns.device_grid.coords)
+    arrays["step_t"] = np.array([ns.step_index, ns.t])
+    np.savez(out, **arrays)
+
+
+APP_ARGV = ["-device", "cpu", "-cart_grid_x", "16", "-cart_grid_y", "16", "-ns_max_steps",
+            "3", "-ns_monitor", "-ns_monitor_solution"]
+
+
+def run_app(shape, out):
+    import contextlib
+    import io
+
+    from fluca_tpu_torch import app
+    from fluca_tpu_torch.io.viewer import AsciiViewer
+    from fluca_tpu_torch.utils import config
+
+    config.set_default_dtype(torch.float64)
+    ck = os.path.join(os.path.dirname(out), "appck")
+    grid = ["-parallel_grid", "x".join(map(str, shape))]
+    expect_raise(ValueError, lambda: app.main(APP_ARGV + grid), "name the backend")
+    expect_raise(ValueError, lambda: app.main(APP_ARGV + ["-parallel_backend", "gloo"]),
+                 "needs -parallel_grid")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = app.main(APP_ARGV + grid + ["-parallel_backend", "gloo", "-checkpoint", ck])
+    ns = app.build(APP_ARGV[:6] + grid + ["-parallel_backend", "gloo", "-load_checkpoint", ck])
+    np.savez(out, rc=np.array([rc]), text=np.array([buf.getvalue()]),
+             maxima=np.array(AsciiViewer.maxima(ns)), step=np.array([ns.step_index]))
+
+
+def run_tools(shape, out):
+    from fluca_tpu_torch.examples import bench_scaling, ici_bytes
+
+    rec = bench_scaling.ranks(base=8, steps=1)
+    traffic = ici_bytes.measure(shape, N=16)
+    text = json.dumps({"bench_scaling": rec, "ici_bytes": traffic})
+    np.savez(out, text=np.array([text]))
 
 
 def main():
@@ -182,6 +322,14 @@ def main():
         run_exchange(grid_shape(args[0]), out)
     elif kind == "refusals":
         run_refusals(grid_shape(args[0]), out)
+    elif kind == "io":
+        run_io(args[0], grid_shape(args[1]), out)
+    elif kind == "refio":
+        run_refio(grid_shape(args[0]), out)
+    elif kind == "app":
+        run_app(grid_shape(args[0]), out)
+    elif kind == "tools":
+        run_tools(grid_shape(args[0]), out)
     else:
         raise ValueError(f"unknown case {case!r}")
     distributed.finalize_distributed()
