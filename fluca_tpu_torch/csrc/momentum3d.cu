@@ -22,8 +22,11 @@
 //          + (Flv_a[c] + [c==a] FlU_a) nl_a + (Frv_a[c] + [c==a] FrU_a) nr_a
 //          + [c!=a] (FlU_a sum_o CV_a(0,0,o) v_c(q+o)
 //                    + FrU_a sum_o CV_a(0,1,o) v_c(q+o))
-// (momentum_cell below, in that order, every sum a chain of fused
-// multiply-adds). Neighbours outside a non-periodic axis read 0 and
+// (momentum_cell below, in that order; in the f32 and f64 instances
+// every sum a chain of fused multiply-adds, in the bf16 instance every
+// product and sum rounded on its own in the plain version's order,
+// ops/cuda_stencil.py _momentum3d, so that it equals that version bit
+// for bit). Neighbours outside a non-periodic axis read 0 and
 // wrap on a periodic one (fluca_tpu_torch.ops.banded.shifted), the same
 // on all three axes and for the +-2 rows.
 //
@@ -78,8 +81,8 @@
 //     on the H100, their unpacking costing more issue than the load they
 //     save;
 //   - one per-cell arithmetic function (momentum_cell), with explicit
-//     fused multiply-adds, for the unsharded and the halo instances, so
-//     a halo block equals the unsharded kernel bit for bit. In the halo
+//     fused multiply-adds (f32, f64), for the unsharded and the halo
+//     instances, so a halo block equals the unsharded kernel bit for bit. In the halo
 //     instance the rows at a split axis-1 edge take a path of their own
 //     (whole warps); the other halo reads are selects.
 // The launch geometry (rows, run, grid, shared memory) comes from the
@@ -172,57 +175,78 @@ __device__ __forceinline__ void band_rows(const double* B, double (&w)[kBandPitc
 
 // Axis A's terms of the three components, added to acc; far(c, off)
 // reads v_c at the cell moved by off (+-2) along A, where FAR and the
-// row's bit say so.
-template <int A, bool FAR, typename C, typename Far>
+// row's bit say so. The arithmetic is that of fields of type T
+// (stencil_common.cuh madd): fused multiply-adds in the f32 and f64
+// instances; in the bf16 one every product and sum rounded on its own,
+// in its plain version's order, which adds the same terms in the same
+// order but for the +-2 Laplacian rows.
+template <int A, bool FAR, typename T, typename C, typename Far>
 __device__ __forceinline__ void axis_sum(const C (&vc)[3], const AxisIn<C>& x,
                                          const Far& far, C (&acc)[3]) {
-    using fluca::mad;
+    using fluca::madd;
+    using fluca::mult;
+    using fluca::plus;
     C b[kBandPitch];
     band_rows(x.B, b);
     auto sum3 = [&](int r, C m, C c, C p) {  // r: the row of offset 0
-        return mad(b[r + 1], p, mad(b[r], c, b[r - 1] * m));
+        return madd<T>(b[r + 1], p, madd<T>(b[r], c, mult<T>(b[r - 1], m)));
     };
     // normal-variant sums on v_A, shared by the three components
     const C nl = sum3(conv_row(1, 0, 0), x.vm[A], vc[A], x.vp[A]);
     const C nr = sum3(conv_row(1, 1, 0), x.vm[A], vc[A], x.vp[A]);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-        C s = sum3(lap_row(c, 0), x.vm[c], vc[c], x.vp[c]);
-        if (FAR && (x.far & (1u << (2 * c)))) s = mad(b[lap_row(c, -2)], far(c, -2), s);
-        if (FAR && (x.far & (2u << (2 * c)))) s = mad(b[lap_row(c, 2)], far(c, 2), s);
+        C s;
+        if constexpr (FAR && fluca::kPlainOrder<T>) {
+            // the plain version sums the five Laplacian rows from -2 up; a
+            // zero +-2 row adds a zero product
+            const C m2 = (x.far & (1u << (2 * c))) ? far(c, -2) : C(0);
+            const C p2 = (x.far & (2u << (2 * c))) ? far(c, 2) : C(0);
+            s = madd<T>(b[lap_row(c, 2)], p2,
+                        madd<T>(b[lap_row(c, 1)], x.vp[c],
+                                madd<T>(b[lap_row(c, 0)], vc[c],
+                                        madd<T>(b[lap_row(c, -1)], x.vm[c],
+                                                mult<T>(b[lap_row(c, -2)], m2)))));
+        } else {
+            s = sum3(lap_row(c, 0), x.vm[c], vc[c], x.vp[c]);
+            if (FAR && (x.far & (1u << (2 * c)))) s = madd<T>(b[lap_row(c, -2)], far(c, -2), s);
+            if (FAR && (x.far & (2u << (2 * c)))) s = madd<T>(b[lap_row(c, 2)], far(c, 2), s);
+        }
         if (c == A) {
-            s = mad(x.Frv[c] + x.FrU, nr, mad(x.Flv[c] + x.FlU, nl, s));
+            s = madd<T>(plus<T>(x.Frv[c], x.FrU), nr, madd<T>(plus<T>(x.Flv[c], x.FlU), nl, s));
         } else {
             const C tl = sum3(conv_row(0, 0, 0), x.vm[c], vc[c], x.vp[c]);
             const C tr = sum3(conv_row(0, 1, 0), x.vm[c], vc[c], x.vp[c]);
-            s = mad(x.FrU, tr, mad(x.FlU, tl, mad(x.Frv[c], nr, mad(x.Flv[c], nl, s))));
+            s = madd<T>(x.FrU, tr,
+                        madd<T>(x.FlU, tl, madd<T>(x.Frv[c], nr, madd<T>(x.Flv[c], nl, s))));
         }
-        acc[c] += s;
+        acc[c] = plus<T>(acc[c], s);
     }
 }
 
 // The +-2 rows are nonzero on wall rows only: one test per axis.
-template <int A, typename C, typename Far>
+template <int A, typename T, typename C, typename Far>
 __device__ __forceinline__ void axis_terms(const C (&vc)[3], const AxisIn<C>& x,
                                            const Far& far, C (&acc)[3]) {
     if (x.far)
-        axis_sum<A, true>(vc, x, far, acc);
+        axis_sum<A, true, T>(vc, x, far, acc);
     else
-        axis_sum<A, false>(vc, x, far, acc);
+        axis_sum<A, false, T>(vc, x, far, acc);
 }
 
 // The per-cell arithmetic of every instance: A v at one cell from its v
-// (vc), the three axes' inputs and their +-2 readers, in this order.
-template <typename C, typename F0, typename F1, typename F2>
+// (vc), the three axes' inputs and their +-2 readers, in this order, in
+// the arithmetic of fields of type T.
+template <typename T, typename C, typename F0, typename F1, typename F2>
 __device__ __forceinline__ void momentum_cell(const C (&vc)[3], const AxisIn<C>& a0,
                                               const AxisIn<C>& a1, const AxisIn<C>& a2,
                                               const F0& far0, const F1& far1,
                                               const F2& far2, C (&acc)[3]) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) acc[c] = vc[c];
-    axis_terms<0>(vc, a0, far0, acc);
-    axis_terms<1>(vc, a1, far1, acc);
-    axis_terms<2>(vc, a2, far2, acc);
+    axis_terms<0, T>(vc, a0, far0, acc);
+    axis_terms<1, T>(vc, a1, far1, acc);
+    axis_terms<2, T>(vc, a2, far2, acc);
 }
 
 // One thread: the cell (j, k) of each plane of its block's run. HALO
@@ -394,14 +418,14 @@ momentum3d_kernel(const Args<T> h) {
                 }
                 return a;
             };
-            momentum_cell(vr[1], axis_in(sb0 + ii * kBandPitch, sfar0[ii], vr[0], vr[2], f0[0],
-                                         f0[1]),
-                          axis_in(B1, far1, vjm, vjp, f1[0], f1[1]),
-                          axis_in(B2, far2, vkm, vkp, f2[0], f2[1]),
-                          [&](int c, int off) { return fluca::halo_load(h.v[c], g, pos, 0, off); },
-                          [&](int c, int off) { return fluca::halo_load(h.v[c], g, pos, 1, off); },
-                          [&](int c, int off) { return fluca::halo_load(h.v[c], g, pos, 2, off); },
-                          acc);
+            momentum_cell<T>(
+                vr[1], axis_in(sb0 + ii * kBandPitch, sfar0[ii], vr[0], vr[2], f0[0], f0[1]),
+                axis_in(B1, far1, vjm, vjp, f1[0], f1[1]),
+                axis_in(B2, far2, vkm, vkp, f2[0], f2[1]),
+                [&](int c, int off) { return fluca::halo_load(h.v[c], g, pos, 0, off); },
+                [&](int c, int off) { return fluca::halo_load(h.v[c], g, pos, 1, off); },
+                [&](int c, int off) { return fluca::halo_load(h.v[c], g, pos, 2, off); },
+                acc);
 #pragma unroll
             for (int c = 0; c < 3; ++c) F::store(h.out[c] + pl + ctr, acc[c]);
 

@@ -23,7 +23,10 @@
 // computes in; p, b, w and out are (N0, N1, N2) in the field type.
 // Instances: f32 and f64, and bf16 (bf16 fields, float coefficients and
 // arithmetic, one rounding at the store), the counterpart of the TPU
-// kernel's bf16 instance under precond_dtype. The halo instance (f32,
+// kernel's bf16 instance under precond_dtype. The bf16 instance rounds
+// every product and sum on its own in its plain version's order
+// (stencil_common.cuh kPlainOrder), so it equals that version bit for
+// bit; the f32 and f64 instances sum with fused multiply-adds. The halo instance (f32,
 // f64) is one shard's block of a domain-decomposed grid: the same kernel
 // template, whose reads past the block come from the edge planes of p
 // (stencil_common.cuh), so a block equals the unsharded kernel bit for
@@ -66,8 +69,9 @@
 //   - the in-plane neighbours come through L1: the lines of the j+-1 rows
 //     are the ones the block's other warps read for their own cells;
 //   - one arithmetic (poisson3d_axis, poisson3d_sp: explicit fused
-//     multiply-adds) for every instance, so a halo block equals the
-//     unsharded kernel bit for bit.
+//     multiply-adds, or in bf16 one rounding per operation) for every
+//     instance of a field type, so a halo block equals the unsharded
+//     kernel bit for bit.
 // The kernel template lives in poisson3d.cuh, which probes.cu includes
 // too: its stripped variants are instances of it, launched with the
 // apply's geometry. The launch geometry (rows, run, grid, shared memory)

@@ -161,12 +161,17 @@ poisson3d_kernel(const Args<T> h) {
         C a[4];
         fluca::plane_coeffs(s0 + 4 * ii, a);  // A0[-1], A0[0], A0[+1], H0
 
-        const C sa = fluca::poisson3d_axis(a[0], a[1], a[2], pm, pc, pp);
-        const C sb = fluca::poisson3d_axis(c1m, c1c, c1p, nb[0], pc, nb[1]);
-        const C sc = fluca::poisson3d_axis(c2m, c2c, c2p, nb[2], pc, nb[3]);
-        const C sp = fluca::poisson3d_sp(sa, sb, sc, a[3], hj, hk);
+        const C sa = fluca::poisson3d_axis<T>(a[0], a[1], a[2], pm, pc, pp);
+        const C sb = fluca::poisson3d_axis<T>(c1m, c1c, c1p, nb[0], pc, nb[1]);
+        const C sc = fluca::poisson3d_axis<T>(c2m, c2c, c2p, nb[2], pc, nb[3]);
+        const C sp = fluca::poisson3d_sp<T>(sa, sb, sc, a[3], hj, hk);
         if (MODE == 0) {
             F::store(o, sp);
+        } else if constexpr (fluca::kPlainOrder<T>) {
+            // the plain version's b - Sp and p + (omega w) (b - Sp), each
+            // operation rounded on its own
+            const C r = fluca::sub(bb, sp);
+            F::store(o, MODE == 1 ? r : fluca::add(pc, fluca::mul(fluca::mul(h.omega, ww), r)));
         } else if (MODE == 1) {
             F::store(o, bb - sp);
         } else {

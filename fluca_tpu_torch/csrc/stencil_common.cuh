@@ -21,8 +21,10 @@
 //   resolved once per thread, not per load): momentum3d.cu and
 //   poisson3d.cuh;
 // - mad (a fused multiply-add whatever the context): every kernel but
-//   probes.cu's copies and poisson2d.cu; mul, add, sub (one rounding
-//   each, never contracted): poisson2d.cu.
+//   probes.cu's copies and poisson2d.cu, in their f32 and f64 instances;
+//   mul, add, sub (one rounding each, never contracted): poisson2d.cu, and
+//   the bf16 instances of poisson3d.cuh and momentum3d.cu (kPlainOrder;
+//   madd, mult, plus choose between the two by the field type).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -91,6 +93,44 @@ __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, 
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
 
+// Whether the instance for fields of type T rounds every product, sum and
+// difference on its own, in its plain version's order (mul, add, sub), in
+// place of fused multiply-adds: the bf16 instances, whose plain versions
+// (fluca_tpu_torch/ops/cuda_stencil.py) compute in float32 one rounded
+// torch operation at a time. Where terms cancel, a fused sum parts from
+// such a version by a bf16 unit at some cells. The f32 and f64 instances
+// keep their fused sums, so that they, and the halo instances that share
+// their arithmetic, stay equal to their first designs bit for bit.
+template <typename T>
+constexpr bool kPlainOrder = false;
+template <>
+constexpr bool kPlainOrder<__nv_bfloat16> = true;
+
+// a * b + c, a * b and a + b in the arithmetic of fields of type T: each
+// product and sum rounded on its own where kPlainOrder<T>, else a fused
+// multiply-add and the plain operators (momentum3d.cu).
+template <typename T, typename C>
+__device__ __forceinline__ C madd(C a, C b, C c) {
+    if constexpr (kPlainOrder<T>)
+        return add(mul(a, b), c);
+    else
+        return mad(a, b, c);
+}
+template <typename T, typename C>
+__device__ __forceinline__ C mult(C a, C b) {
+    if constexpr (kPlainOrder<T>)
+        return mul(a, b);
+    else
+        return a * b;
+}
+template <typename T, typename C>
+__device__ __forceinline__ C plus(C a, C b) {
+    if constexpr (kPlainOrder<T>)
+        return add(a, b);
+    else
+        return a + b;
+}
+
 __device__ __forceinline__ int wrap_index(int k, int n) {
     k %= n;
     return k < 0 ? k + n : k;
@@ -100,19 +140,28 @@ __device__ __forceinline__ int wrap_index(int k, int n) {
 // csrc/poisson3d.cuh's kernel (poisson3d.cu's unsharded and halo ones,
 // probes.cu's variants), so that they round alike whatever the code
 // around them: one axis' sum bm xm + bc xc + bp xp of the three band
-// values at an index, and Sp = H1[j] H2[k] s0 + H0[i] (H2[k] s1 + H1[j] s2), each a chain of
-// explicit fused multiply-adds. The order is the one nvcc chose for the
-// first design's expressions (b0 xm + b1 xc + b2 xp and
-// hj hk s0 + h0 (hk s1 + hj s2), contracted), so the redesigned kernel
-// equals it bit for bit, and the step its results.
-template <typename C>
+// values at an index, and Sp = H1[j] H2[k] s0 + H0[i] (H2[k] s1 + H1[j] s2).
+// For fields of type T with kPlainOrder<T> (bf16) every product and sum
+// is rounded on its own in the plain version's order, (bm xm + bc xc) +
+// bp xp and (hj hk) s0 + h0 (hk s1 + hj s2). Otherwise each is a chain of
+// explicit fused multiply-adds in the order nvcc chose for the first
+// design's expressions (b0 xm + b1 xc + b2 xp and hj hk s0 + h0 (hk s1 +
+// hj s2), contracted), so the redesigned kernel equals it bit for bit,
+// and the step its results.
+template <typename T, typename C>
 __device__ __forceinline__ C poisson3d_axis(C bm, C bc, C bp, C xm, C xc, C xp) {
-    return mad(bp, xp, mad(bm, xm, bc * xc));
+    if constexpr (kPlainOrder<T>)
+        return add(add(mul(bm, xm), mul(bc, xc)), mul(bp, xp));
+    else
+        return mad(bp, xp, mad(bm, xm, bc * xc));
 }
 
-template <typename C>
+template <typename T, typename C>
 __device__ __forceinline__ C poisson3d_sp(C s0, C s1, C s2, C h0, C hj, C hk) {
-    return mad(hj * hk, s0, h0 * mad(hj, s2, hk * s1));
+    if constexpr (kPlainOrder<T>)
+        return add(mul(mul(hj, hk), s0), mul(h0, add(mul(hk, s1), mul(hj, s2))));
+    else
+        return mad(hj * hk, s0, h0 * mad(hj, s2, hk * s1));
 }
 
 // The CUDA grid's y and z extents.

@@ -1,11 +1,13 @@
-"""Device time of the 3-D Poisson kernel and the chain stages at the
-shapes of the 512x256x256 channel (BASELINE config #5) and the 128^3
-channel, through the wrappers a solver calls: the Poisson 3-D modes on
-the finest level in float32, float64 and bf16, on every level in
-float32, and its halo call on a (2, 2, 2) grid of the finest level
-(edge planes given, the 8 launches alone); the three chain stages on the
-solver's bands in float32 and float64. Random fields from a seed; each
-time is the mean of launches captured in a CUDA graph.
+"""Device time of the 3-D Poisson kernel, the 3-D momentum kernel and the
+chain stages at the shapes of the 512x256x256 channel (BASELINE config
+#5) and the 128^3 channel, through the wrappers a solver calls: the
+Poisson 3-D modes on the finest level in float32, float64 and bf16, on
+every level in float32, and its halo call on a (2, 2, 2) grid of the
+finest level (edge planes given, the 8 launches alone); the momentum
+kernel on the first step's face factors in float32 and in bf16 (built
+from U0 and v0f as the bf16 preconditioner builds them); the three chain
+stages on the solver's bands in float32 and float64. Random fields from a
+seed; each time is the mean of launches captured in a CUDA graph.
 
     python -m fluca_tpu_torch.examples.kernels512 [--device cuda] [--out PATH]
 
@@ -109,6 +111,23 @@ def chain_stages(chain, gen, reps) -> dict:
     return out
 
 
+def momentum_dtypes(ns, gen, reps) -> dict:
+    """ms per call of the momentum kernel on the step's face factors of
+    ``ns`` in float32 and bf16, on random v."""
+    ops, state = ns.impl.ops, ns.state
+    Bv0, bcB = ops.apply_B(state["v"]), ops.bc_B(ns.t)
+    v0f = tuple(tuple(Bv0[d][c] + bcB[d][c] for c in range(3)) for d in range(3))
+    out = {}
+    for dtype in (F32, BF16):
+        bands = ops.momentum_bands_3d(dtype)
+        f = ops.build_momentum_factors_3d(state["U"], v0f, dtype)
+        v = tuple(torch.randn(ns.mesh.cell_shape, generator=gen, device=bands.b[0].device)
+                  .to(dtype) for _ in range(3))
+        out[NAMES[dtype]] = graph_ms(lambda: cs.momentum3d(bands, f, v), *reps)
+        del f, v
+    return out
+
+
 def channel(N, dt, device):
     return setup_channel_3d(N=N, dt=dt, stretch_y=2.0, device=device)
 
@@ -120,7 +139,7 @@ def main(argv=None) -> int:
         raise RuntimeError("kernels512 times CUDA kernels: it needs a CUDA device")
     gen = torch.Generator(device=device).manual_seed(0)
     result = {"package": str(Path(fluca_tpu_torch.__file__).resolve().parent),
-              "poisson3d": {}, "poisson3d_halo": {}, "chain3d": {}}
+              "poisson3d": {}, "poisson3d_halo": {}, "momentum3d": {}, "chain3d": {}}
     for N, dt, reps in (((512, 256, 256), 5e-5, (10, 10)), ((128, 128, 128), 2e-3, (50, 20))):
         key = "x".join(map(str, N))
         ns = channel(N, dt, device)
@@ -138,6 +157,7 @@ def main(argv=None) -> int:
         del lvl16
         if N[0] == 512:
             result["poisson3d_halo"][f"{key} on (2, 2, 2) f32"] = halo_modes(lvl, gen, reps)
+        result["momentum3d"][key] = momentum_dtypes(ns, gen, reps)
         chain = impl._stages
         twin = Chain3D(impl.mesh, impl.ops.axbcs, impl.rho, impl.dt, F64, device)
         del ns, impl, levels, lvl

@@ -6,14 +6,18 @@ and its max |deviation| over u, v and p from the converged FGMRES rtol
 1e-5 solve of the same steps (in U_lid).
 
     python -m fluca_tpu_torch.examples.pin128 [--steps 50] [--repeats 1]
-        [--save-steps PATH] [--compare-steps PATH] [--device cuda] [--out PATH]
+        [--save-steps PATH] [--compare-steps PATH] [--outer] [--device cuda] [--out PATH]
 
 ``--repeats`` runs the bf16 solve that many times in the process (the
 pin's spread). ``--save-steps`` writes the bf16 run's u, v and p after
 every step; ``--compare-steps`` runs the same steps from the same initial
 state and reports, per step, the max |difference| from the saved ones:
 save on the card and compare on the CPU (``--device cpu``) to follow
-the two apart step by step. Prints one JSON line.
+the two apart step by step. ``--outer`` also runs the reference's
+outer-budget sweep (examples/tune_budget_tpu.py:53-57): float32
+production() and production(o, 8, 6) with the bf16 preconditioner (both
+inner solves) at o = 3, 4, 5, each with its deviation and whether it meets
+the repo's production pin, 2e-4 U_lid. Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -31,6 +35,21 @@ def bf16_both() -> CNLinearConfig:
     cfg.precond_dtype = "bfloat16"
     cfg.precond_scope = "both"
     return cfg
+
+
+# the production pin's bar (examples/tune_budget_tpu.py:51; tests/test_fastpath.py)
+PIN_BAR = 2e-4
+
+
+def outer_sweep():
+    """(label, config) of the reference's outer-budget sweep
+    (examples/tune_budget_tpu.py:53-57)."""
+    out = [("production_o3_f32", CNLinearConfig.production())]
+    for o in (3, 4, 5):
+        cfg = CNLinearConfig.production(o, 8, 6)
+        cfg.precond_dtype = "bfloat16"
+        out.append((f"production_o{o}_bf16", cfg))
+    return out
 
 
 def fields(ns):
@@ -64,6 +83,7 @@ def main(argv=None) -> int:
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--save-steps", default=None)
     ap.add_argument("--compare-steps", default=None)
+    ap.add_argument("--outer", action="store_true", help="also run the outer-budget sweep")
     args = ap.parse_args(argv)
     device = check_device(args.device)
     ref = run(CNLinearConfig(), args.steps, device)
@@ -83,6 +103,10 @@ def main(argv=None) -> int:
             torch.save(trace, args.save_steps)
         if saved is not None and r == 0:
             result["max_abs_vs_saved_by_step"] = diffs
+    if args.outer:
+        devs = {label: max_dev(run(cfg, args.steps, device), ref) for label, cfg in outer_sweep()}
+        result["outer_sweep"] = devs
+        result["outer_sweep_pass"] = {label: d < PIN_BAR for label, d in devs.items()}
     emit(result, device, args.out)
     return 0
 

@@ -89,6 +89,28 @@ def test_roofline_cells_on_the_cpu():
     assert set(s) == SHARDED_KEYS and s["ratio"] > 0
 
 
+def test_sharded_1x1_check_is_bit_equality(monkeypatch):
+    """sharded_1x1_ratio passes where the two calls agree bit for bit,
+    and raises where the sharded output differs from the unsharded one by
+    one float32 unit in the last place at a single cell."""
+    assert bench.sharded_1x1_ratio(N=32, device=CPU)["ratio"] > 0
+    pair = bench._sharded_1x1_pair
+
+    def planted(N, device):
+        f_un, f_sh, x = pair(N, device)
+
+        def f_bad(y):
+            out = f_sh(y).clone()
+            out[3, 5] = torch.nextafter(out[3, 5], torch.tensor(float("inf")))
+            return out
+
+        return f_un, f_bad, x
+
+    monkeypatch.setattr(bench, "_sharded_1x1_pair", planted)
+    with pytest.raises(RuntimeError, match="sharded.1x1. mismatch"):
+        bench.sharded_1x1_ratio(N=32, device=CPU)
+
+
 def test_sharded_1x1_host_time_on_the_cpu():
     """The host's time per call of the two calls sharded_1x1_ratio times,
     and host_us_per_call's chained calls."""

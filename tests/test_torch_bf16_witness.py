@@ -225,6 +225,99 @@ def test_torch_pin_poisson2d_bf16_equals_card():
 
 
 # ----------------------------------------------------------------------
+# the card's 2-D momentum and 3-D bf16 calls
+# ----------------------------------------------------------------------
+
+# The bf16 momentum 2-D call of the pin's first step with the most nonzero
+# cells of u and v (pin128_inner.py --save ... --kernel-calls), and the bf16
+# calls of one step of the 32^3 channel from streamwise rolls with the bf16
+# preconditioner on both inner solves (pin128_inner.py --case channel32
+# --save ... --kernel-calls): a 3-D Poisson call of each (mode, level) that
+# the step launches and a 3-D momentum call, recorded on an H100.
+CARD_MOMENTUM2D_CALL = Path(__file__).resolve().parent / "torch_data" / \
+    "pin128_momentum2d_bf16_h100.npz"
+CARD_3D_CALLS = Path(__file__).resolve().parent / "torch_data" / \
+    "channel32_bf16_3d_h100.npz"
+# the recorded (mode, level) keys of the 3-D Poisson calls, in their order
+CARD_POISSON3D_KEYS = ("smooth 32x32x32", "residual 32x32x32", "apply 32x32x32",
+                       "residual 16x16x16", "smooth 16x16x16")
+
+
+def _bf16(z, key):
+    return torch.from_numpy(z[key]).view(BF16) if key in z else None
+
+
+def _assert_bit_equal(got, card, label):
+    for k, (g, c) in enumerate(zip(got, card)):
+        differ = g.double() != c.double()
+        assert not bool(differ.any()), \
+            f"{label} output {k}: {int(differ.sum())} of {differ.numel()} cells differ"
+
+
+def test_torch_pin_momentum2d_bf16_equals_card():
+    """The plain version of the 2-D momentum kernel gives the card's
+    recorded bf16 output at max abs difference 0. The kernel sums with
+    fused multiply-adds, but a product of two bf16 values is exact in
+    float32, so each fused step rounds as the plain version's float32 sum
+    does: 0 of the 1,572,864 cells of the pin's first step's 48 recorded
+    calls parted, before and after the 3-D kernels' bf16 rounding order
+    changed (examples/pin128_inner.py --compare)."""
+    from fluca_tpu_torch.ops import cuda_stencil
+
+    z = np.load(CARD_MOMENTUM2D_CALL)
+    got = cuda_stencil.momentum2d(_bf16(z, "m2d_W"), _bf16(z, "m2d_u"), _bf16(z, "m2d_v"),
+                                  tuple(bool(x) for x in z["m2d_periodic"]))
+    assert bool(_bf16(z, "m2d_u").abs().max() > 0) and bool(_bf16(z, "m2d_v").abs().max() > 0)
+    _assert_bit_equal(got, (_bf16(z, "m2d_out_u"), _bf16(z, "m2d_out_v")), "momentum2d")
+
+
+@pytest.mark.parametrize("k", range(len(CARD_POISSON3D_KEYS)), ids=CARD_POISSON3D_KEYS)
+def test_torch_channel32_poisson3d_bf16_equals_card(k):
+    """The plain version of the 3-D Poisson kernel, on the card's recorded
+    bf16 call of each mode on each multigrid level that the step launches,
+    gives the card's output at max abs difference 0. The bf16 instance
+    rounds every product and sum on its own in the plain version's order
+    (csrc/stencil_common.cuh kPlainOrder); with the fused multiply-adds it
+    had before, 495 of 1,277,952 cells of the step's 60 recorded calls
+    parted, by up to 844 bf16 units where the terms cancel (462 cells of
+    the applies)."""
+    from fluca_tpu_torch.ops import cuda_stencil
+
+    z = np.load(CARD_3D_CALLS)
+    assert int(z["p3d_calls"]) == len(CARD_POISSON3D_KEYS)
+    c = cuda_stencil.Poisson3DCoeffs(
+        *(torch.as_tensor(z[f"p3d_{f}{k}"]) for f in ("a0", "c1", "c2", "h0", "h1", "h2")),
+        tuple(bool(x) for x in z[f"p3d_periodic{k}"]))
+    mode = str(z[f"p3d_mode{k}"])
+    p = _bf16(z, f"p3d_p{k}")
+    assert f"{mode} {'x'.join(map(str, p.shape))}" == CARD_POISSON3D_KEYS[k]
+    got = cuda_stencil.poisson3d(mode, p, c, _bf16(z, f"p3d_b{k}"), _bf16(z, f"p3d_w{k}"),
+                                 float(z[f"p3d_omega{k}"]))
+    _assert_bit_equal((got,), (_bf16(z, f"p3d_out{k}"),), f"poisson3d {CARD_POISSON3D_KEYS[k]}")
+
+
+def test_torch_channel32_momentum3d_bf16_equals_card():
+    """The plain version of the 3-D momentum kernel, on the card's recorded
+    bf16 call (bf16 v and face factors, float32 bands), gives the card's
+    output at max abs difference 0: the bf16 instance rounds in the plain
+    version's order. With fused multiply-adds 30 of 1,179,648 cells of the
+    step's 12 recorded calls parted, by up to 2 bf16 units."""
+    from fluca_tpu_torch.ops import cuda_stencil
+
+    z = np.load(CARD_3D_CALLS)
+    periodic = tuple(bool(x) for x in z["m3d_periodic"])
+    bands = cuda_stencil.Momentum3DBands(tuple(torch.as_tensor(z[f"m3d_band{a}"])
+                                               for a in range(3)), periodic)
+    U0 = tuple(_bf16(z, f"m3d_U0_{a}") for a in range(3))
+    v0f = tuple(tuple(_bf16(z, f"m3d_v0f_{a}{c}") for c in range(3)) for a in range(3))
+    f = cuda_stencil.Momentum3DFactors.from_faces(U0, v0f, bands, BF16)
+    v = tuple(_bf16(z, f"m3d_v{a}") for a in range(3))
+    assert all(bool(x.abs().max() > 0) for x in v)
+    got = cuda_stencil.momentum3d(bands, f, v)
+    _assert_bit_equal(got, tuple(_bf16(z, f"m3d_out{a}") for a in range(3)), "momentum3d")
+
+
+# ----------------------------------------------------------------------
 # the whole-step readings (script mode)
 # ----------------------------------------------------------------------
 
