@@ -3442,10 +3442,8 @@ def phase_ranks(smi, entries):
             print(f"[ranks] {label}: per rank per step, exchanges "
                   f"{min(x['exchanges'] for x in xs) / steps:.1f}, "
                   f"{max(x['exchange_bytes'] for x in xs) / steps / 2**20:.4f} MiB sent "
-                  f"(most), {max(x['exchange_s'] for x in xs) / steps * 1e3:.2f} ms host "
-                  f"(slowest); sums {xs[0]['sums'] / steps:.1f} and gathers "
-                  f"{xs[0]['gathers'] / steps:.1f}, "
-                  f"{max(x['collective_s'] for x in xs) / steps * 1e3:.2f} ms host (slowest); "
+                  f"(most); sums {xs[0]['sums'] / steps:.1f} and gathers "
+                  f"{xs[0]['gathers'] / steps:.1f}; "
                   f"peak memory per rank {max(f['peak_gib'] for f in figs):.3f} GiB stepping, "
                   f"{max(f['build_peak_gib'] for f in figs):.3f} GiB building, against "
                   f"{one['peak_gib']:.3f} and {one['build_peak_gib']:.3f} GiB one process",

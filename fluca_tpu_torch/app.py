@@ -41,7 +41,8 @@ import fluca_tpu_torch
 from fluca_tpu_torch.mesh.cart import CartMesh
 from fluca_tpu_torch.ns.bc import BCType, BoundaryCondition, zero_velocity_bc
 from fluca_tpu_torch.ns.ns import NS
-from fluca_tpu_torch.utils.options import global_options
+from fluca_tpu_torch.utils import profiling
+from fluca_tpu_torch.utils.options import Options, global_options
 
 
 def _print_rank0(text: str) -> None:
@@ -158,12 +159,21 @@ def build(argv) -> NS:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    # -log_view: the spans and counters of the run, from start-up on
+    if not Options.from_argv(argv).get_bool("log_view", False):
+        return _main(argv)
+    with profiling.tracing() as log:
+        return _main(argv, log)
+
+
+def _main(argv, log=None) -> int:
     import torch.distributed as dist
 
     from fluca_tpu_torch.parallel import distributed
 
     joined = dist.is_available() and dist.is_initialized()
-    ns = build(sys.argv[1:] if argv is None else argv)
+    ns = build(argv)
     opts = global_options()
 
     from fluca_tpu_torch.io.viewer import (
@@ -198,11 +208,10 @@ def main(argv=None) -> int:
         with CGNSWriter(opts.sub("ns_").get_str("view_solution"), ns.mesh) as w:
             w.write_solution(ns)
 
-    # -log_view: PETSc-style event summary at exit (nspkg.c:30-34)
-    if opts.get_bool("log_view", False):
-        from fluca_tpu_torch.utils.profiling import global_log
-
-        _print_rank0(global_log.view())
+    # -log_view: the table of the spans and counters at exit
+    # (nspkg.c:30-34)
+    if log is not None:
+        _print_rank0(log.view())
     # leave a process group that this run joined (not one its caller did)
     if not joined and dist.is_available() and dist.is_initialized():
         distributed.finalize_distributed()

@@ -12,7 +12,8 @@ is computed, spread to the grid, and added to the momentum RHS:
 
 through the solver's ``body_force`` hook (``CNLinearSolver.body_force``).
 Drag and lift follow from the reaction force: -rho * sum_k F_k ds_k.
-Nothing here reads a value back to the host.
+Nothing here reads a value back to the host. The step's forcing runs in
+the span ``ibm.force``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Callable, Optional
 import torch
 
 from fluca_tpu_torch.ibm.markers import MarkerSet
+from fluca_tpu_torch.utils.profiling import span
 
 
 class DirectForcingIBM:
@@ -65,8 +67,9 @@ class DirectForcingIBM:
 
     def body_force(self, state, t):
         """Cell-vector force field for the momentum RHS hook."""
-        F = self.marker_forces(state, t)
-        return tuple(self.markers.spread(F[:, c]) for c in range(self.markers.mesh.dim))
+        with span("ibm.force"):
+            F = self.marker_forces(state, t)
+            return tuple(self.markers.spread(F[:, c]) for c in range(self.markers.mesh.dim))
 
     def hydrodynamic_force(self, state, t, rho: float):
         """Total force the fluid exerts on the body: the negative of the

@@ -59,7 +59,8 @@ from fluca_tpu_torch.solvers.krylov import (
     KrylovResult, bicgstab, cg, fgmres, gcr, tree_add, tree_dot, tree_sub,
 )
 from fluca_tpu_torch.solvers.mg import PoissonMG
-from fluca_tpu_torch.utils import config
+from fluca_tpu_torch.utils import config, profiling
+from fluca_tpu_torch.utils.profiling import span
 
 # a tolerance at or below this is a fixed budget: the solver never
 # stops early, so it runs without host reads
@@ -405,8 +406,10 @@ class CNLinearSolver:
             return tuple(inv_diag[c] * r[c] for c in range(ops.dim))
 
         if cfg.mom_solver == "gcr":
+            profiling.count("iters.momentum", cfg.mom_maxiter)
             return gcr(A, rhs_v, maxiter=cfg.mom_maxiter, M=M, dot=self._dot).x
         if cfg.mom_solver == "jacobi":
+            profiling.count("iters.momentum", cfg.mom_maxiter)
             # mom_maxiter damped-Jacobi sweeps: one fused A-apply and
             # an elementwise update per sweep, no reductions
             w = cfg.mom_omega
@@ -420,10 +423,12 @@ class CNLinearSolver:
             return x
         if cfg.mom_solver != "bicgstab":
             raise ValueError(f"unknown momentum solver {cfg.mom_solver!r}")
-        return bicgstab(
+        res = bicgstab(
             A, rhs_v, rtol=self._budget_rtol(cfg.mom_rtol),
             maxiter=cfg.mom_maxiter, M=M, dot=self._dot,
-        ).x
+        )
+        profiling.count("iters.momentum", res.iters)
+        return res.x
 
     def _ainv_diag(self, kind: str, Acoeffs, diagA):
         """1/Atilde as a per-component diagonal field, or None for
@@ -458,6 +463,7 @@ class CNLinearSolver:
         if ainv1 is None and cfg.schur_solver == "vcycle":
             # schur_maxiter V-cycle Richardson iterations; the constant
             # mode is projected once at the end (G of a constant is 0)
+            profiling.count("iters.schur", cfg.schur_maxiter)
             b = mg.scale_rhs(rhs_p)
             lvl0 = mg.levels[0]
             p = mg.precondition(b)
@@ -468,7 +474,7 @@ class CNLinearSolver:
         if ainv1 is None:
             if cfg.schur_solver != "cg":
                 raise ValueError(f"unknown Schur solver {cfg.schur_solver!r}")
-            return cg(
+            res = cg(
                 mg.apply_op,
                 mg.scale_rhs(rhs_p),
                 rtol=self._budget_rtol(cfg.schur_rtol),
@@ -476,7 +482,9 @@ class CNLinearSolver:
                 M=mg.precondition,
                 project=proj,
                 dot=self._dot,
-            ).x
+            )
+            profiling.count("iters.schur", res.iters)
+            return res.x
         ops = self.ops
 
         def S(p):
@@ -487,11 +495,13 @@ class CNLinearSolver:
             out = ops.apply_D(ops.apply_T(corr)) - ops.apply_DGst(p)
             return mg.scale_rhs(out)
 
-        p = fgmres(
+        res = fgmres(
             S, mg.scale_rhs(rhs_p), rtol=cfg.schur_rtol,
             maxiter=cfg.schur_maxiter, restart=30, M=mg.precondition,
             dot=self._dot,
-        ).x
+        )
+        profiling.count("iters.schur", res.iters)
+        p = res.x
         return proj(p) if proj else p
 
     # -- reduced-precision preconditioner ------------------------------
@@ -558,7 +568,8 @@ class CNLinearSolver:
         }
 
     def _abf_apply(self, r, Acoeffs, diagA, pre=None):
-        """PCApply_ABF (abfpc.c:48-111).
+        """PCApply_ABF (abfpc.c:48-111), its stages in the spans
+        ``abf.momentum``, ``abf.pre``, ``abf.schur`` and ``abf.post``.
 
         ``pre`` (from _precond_ctx): the inner solves in reduced
         precision; the T/D/G/Gst chains and the result stay in the
@@ -569,32 +580,40 @@ class CNLinearSolver:
         if pre is not None and ainv1 is None and ainv2 is None:
             # the unfused stages, as the reference's bf16 branch has them
             pdt = pre["dtype"]
-            vstar = self._solve_momentum(
-                tuple(x.to(pdt) for x in r["v"]), pre["Acoeffs"], pre["diagA"]
-            )
-            vstar = tuple(x.to(self.dtype) for x in vstar)
-            Ustar, rp = self._unfused.abf_pre(vstar, r["U"], r["p"])
-            if pre["mg"] is None:
-                p = self._solve_schur(rp)
-            else:
-                p = self._solve_schur(rp.to(pdt), mg=pre["mg"]).to(self.dtype)
-            v, U = self._unfused.abf_post(vstar, Ustar, p)
+            with span("abf.momentum"):
+                vstar = self._solve_momentum(
+                    tuple(x.to(pdt) for x in r["v"]), pre["Acoeffs"], pre["diagA"]
+                )
+                vstar = tuple(x.to(self.dtype) for x in vstar)
+            with span("abf.pre"):
+                Ustar, rp = self._unfused.abf_pre(vstar, r["U"], r["p"])
+            with span("abf.schur"):
+                if pre["mg"] is None:
+                    p = self._solve_schur(rp)
+                else:
+                    p = self._solve_schur(rp.to(pdt), mg=pre["mg"]).to(self.dtype)
+            with span("abf.post"):
+                v, U = self._unfused.abf_post(vstar, Ustar, p)
             return {"v": v, "U": U, "p": p}
         stages = self._stages if ainv1 is None and ainv2 is None else self._unfused
-        vstar = self._solve_momentum(r["v"], Acoeffs, diagA)
+        with span("abf.momentum"):
+            vstar = self._solve_momentum(r["v"], Acoeffs, diagA)
         # U* = rU + T v*, and the rhs for Schur: contrhs - D U*
-        Ustar, rp = stages.abf_pre(vstar, r["U"], r["p"])
-        p = self._solve_schur(rp, ainv1=ainv1)
-        if ainv2 is None:
-            v, U = stages.abf_post(vstar, Ustar, p)
-            return {"v": v, "U": U, "p": p}
-        Gp = ops.apply_G(p)
-        Gp2 = tuple(ainv2[c] * Gp[c] for c in range(ops.dim))
-        # U update: U* - (T Atilde2^-1 G - R) p, with R = T G - Gst
-        TGp2 = ops.apply_T(Gp2)
-        Rp = ops.apply_R(p)
-        v = tuple(vstar[c] - Gp2[c] for c in range(ops.dim))
-        U = tuple(Ustar[d] - TGp2[d] + Rp[d] for d in range(ops.dim))
+        with span("abf.pre"):
+            Ustar, rp = stages.abf_pre(vstar, r["U"], r["p"])
+        with span("abf.schur"):
+            p = self._solve_schur(rp, ainv1=ainv1)
+        with span("abf.post"):
+            if ainv2 is None:
+                v, U = stages.abf_post(vstar, Ustar, p)
+                return {"v": v, "U": U, "p": p}
+            Gp = ops.apply_G(p)
+            Gp2 = tuple(ainv2[c] * Gp[c] for c in range(ops.dim))
+            # U update: U* - (T Atilde2^-1 G - R) p, with R = T G - Gst
+            TGp2 = ops.apply_T(Gp2)
+            Rp = ops.apply_R(p)
+            v = tuple(vstar[c] - Gp2[c] for c in range(ops.dim))
+            U = tuple(Ustar[d] - TGp2[d] + Rp[d] for d in range(ops.dim))
         return {"v": v, "U": U, "p": p}
 
     # -- RHS (FormFunction; cnlinearcart2d.c:2071-2171) ----------------
@@ -648,14 +667,18 @@ class CNLinearSolver:
     def _outer_solve(self, rhs, Acoeffs, diagA, pre=None, x0=None) -> KrylovResult:
         """The coupled solve; ``pre`` is the reduced-precision context,
         ``x0`` the FGMRES outer's initial guess (the fixed-budget outers
-        start from zero)."""
+        start from zero). Each A runs in the span ``outer.apply``, each M
+        in ``abf``; what is left of the caller's span is the outer
+        solver's own algebra."""
         cfg = self.cfg
 
         def A(x):
-            return self._coupled_apply(x, Acoeffs)
+            with span("outer.apply"):
+                return self._coupled_apply(x, Acoeffs)
 
         def M(r):
-            return self._abf_apply(r, Acoeffs, diagA, pre)
+            with span("abf"):
+                return self._abf_apply(r, Acoeffs, diagA, pre)
 
         if cfg.solve_type == "fsm":
             # classical fractional step: one ABF application is the
@@ -699,43 +722,50 @@ class CNLinearSolver:
                       maxiter=cfg.maxiter, M=M, dot=self._dot)
 
     def _step_impl(self, state, t, is_first_step: bool):
+        """One step, in the spans ``step.rhs``, ``step.coeffs``,
+        ``step.outer`` and ``step.project``."""
         ops = self.ops
         dim = ops.dim
         sol0 = state
         U0 = sol0["U"]
 
-        # v0interp = B v0 + bcB(t)   (cnlinearcart2d.c:1947-1957)
-        Bv0 = ops.apply_B(sol0["v"])
-        bcB = ops.bc_B(t)
-        v0f = tuple(
-            tuple(Bv0[d][c] + bcB[d][c] for c in range(dim))
-            for d in range(dim)
-        )
-
-        rhs = self._form_rhs(sol0, state["phalf"], t, is_first_step)
-        if self.body_force is not None:
-            f = self.body_force(sol0, t)
-            rhs["v"] = tuple(
-                rhs["v"][c] + self.dt * f[c] for c in range(dim)
+        with span("step.rhs"):
+            # v0interp = B v0 + bcB(t)   (cnlinearcart2d.c:1947-1957)
+            Bv0 = ops.apply_B(sol0["v"])
+            bcB = ops.bc_B(t)
+            v0f = tuple(
+                tuple(Bv0[d][c] + bcB[d][c] for c in range(dim))
+                for d in range(dim)
             )
-        diagA = ops.diag_A(U0, v0f)
-        Acoeffs = ops.build_momentum_operator(U0, v0f)
-        pre = self._precond_ctx(Acoeffs, diagA, U0, v0f)
+
+            rhs = self._form_rhs(sol0, state["phalf"], t, is_first_step)
+            if self.body_force is not None:
+                f = self.body_force(sol0, t)
+                rhs["v"] = tuple(
+                    rhs["v"][c] + self.dt * f[c] for c in range(dim)
+                )
+        with span("step.coeffs"):
+            diagA = ops.diag_A(U0, v0f)
+            Acoeffs = ops.build_momentum_operator(U0, v0f)
+            pre = self._precond_ctx(Acoeffs, diagA, U0, v0f)
         x0 = None
         if self.cfg.warm_start:
             # start from the old velocities and a zero pressure increment
             x0 = {"v": tuple(sol0["v"]), "U": tuple(U0),
                   "p": torch.zeros_like(sol0["p"])}
-        res = self._outer_solve(rhs, Acoeffs, diagA, pre, x0)
+        with span("step.outer"):
+            res = self._outer_solve(rhs, Acoeffs, diagA, pre, x0)
+        profiling.count("iters.outer", res.iters)
         x = res.x
-        dp = self._project_p(x["p"])
+        with span("step.project"):
+            dp = self._project_p(x["p"])
 
-        if is_first_step:
-            p_new = sol0["p"] + 2.0 * dp
-            phalf_new = sol0["p"] + dp
-        else:
-            p_new = state["phalf"] + 1.5 * dp
-            phalf_new = state["phalf"] + dp
+            if is_first_step:
+                p_new = sol0["p"] + 2.0 * dp
+                phalf_new = sol0["p"] + dp
+            else:
+                p_new = state["phalf"] + 1.5 * dp
+                phalf_new = state["phalf"] + dp
 
         new_state = {
             "v": tuple(x["v"]),

@@ -17,7 +17,7 @@ from fluca_tpu_torch.mesh.cart import CartMesh
 from fluca_tpu_torch.ns.cnlinear import CNLinearConfig, CNLinearSolver
 from fluca_tpu_torch.utils import config
 from fluca_tpu_torch.utils.options import Options, global_options
-from fluca_tpu_torch.utils.profiling import global_log
+from fluca_tpu_torch.utils import profiling
 from fluca_tpu_torch.utils.registry import Registry
 
 ns_registry = Registry("ns")
@@ -119,13 +119,13 @@ class NS:
         )
 
     def setup(self) -> None:
-        """Reference: NSSetUp (nsbasic.c:153-274), timed as the
-        NS_SetUp log event (nspkg.c:21-24)."""
+        """Reference: NSSetUp (nsbasic.c:153-274), the NS_SetUp span
+        (the log event of nspkg.c:21-24)."""
         if self.impl is not None:
             return
         if any(b is None for b in self.bcs):
             raise ValueError("all boundary conditions must be set before setup")
-        with global_log.event("NS_SetUp"):
+        with profiling.span("NS_SetUp"):
             cfg = CNLinearConfig.from_options(self.options)
             factory = ns_registry.get(self.ns_type)
             self.impl = factory(
@@ -225,14 +225,15 @@ class NS:
 
     # -- stepping ------------------------------------------------------
     def step(self) -> None:
-        """Reference: NSStep (nsbasic.c:276-299), timed as the NS_Step
-        log event. The converged check is the step's one host read."""
+        """Reference: NSStep (nsbasic.c:276-299), the NS_Step span (the
+        root of the step's spans). The converged check is the step's one
+        host read where the solves run fixed budgets."""
         self.setup()
-        with global_log.event("NS_Step"):
+        with profiling.span(profiling.ROOT):
             self.state, diag = self.impl.step(
                 self.state, self.t, self.step_index
             )
-            ok = bool(diag["converged"])
+            ok = profiling.read(diag["converged"], "converged", bool)
         self.last_diag = diag
         if not ok:
             self.reason = NSConvergedReason.DIVERGED_NONLINEAR_SOLVE
@@ -271,7 +272,7 @@ class NS:
     def _advance_batch(self, n: int) -> None:
         self.state, diag = self.impl.multi_step(self.state, self.t, n)
         self.last_diag = diag
-        if not bool(diag["converged"]):
+        if not profiling.read(diag["converged"], "converged", bool):
             self.reason = NSConvergedReason.DIVERGED_NONLINEAR_SOLVE
             if self.error_if_step_failed:
                 raise RuntimeError(

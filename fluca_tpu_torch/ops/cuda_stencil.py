@@ -41,11 +41,13 @@ it, built from ``shifted`` on the same coefficient arrays, with the
 same bf16 semantics (fields upcast to the coefficients' dtype, result
 rounded to the fields'). A wrapper takes the plain version only for
 tensors on the CPU; for a CUDA tensor it launches the kernel or
-raises. Each wrapper counts its kernel launches in ``launches``, and
-by instance in ``launches_by_dtype``, and keeps a ledger: the set of
-(shape, instance, band set) keys it launched at (``launched``) and the
-keys a comparison with the plain version covered (``checked``, marked by
-``mark_checked`` after such a comparison).
+raises. Each wrapper counts its kernel launches by ledger key, the
+(shape, instance, band set) of the launch, in ``launches_by_key`` (their
+sums: ``launches``, and by instance ``launches_by_dtype``;
+``launches_by_key()`` here gives them for every wrapper with the
+kernel's name), and keeps a ledger: the set of keys it launched at
+(``launched``) and the keys a comparison with the plain version covered
+(``checked``, marked by ``mark_checked`` after such a comparison).
 """
 
 from __future__ import annotations
@@ -245,9 +247,10 @@ def _stream_ptr(x) -> int:
 
 class _Kernel:
     """Launch bookkeeping shared by the wrappers: the C entry point of
-    the fields' instance, the error check, the launch counts, and the
-    ledger of launched and checked (shape, instance, band set) keys. The
-    counts are reset by ``reset``; the ledger spans the process."""
+    the fields' instance, the error check, the launch counts by
+    (shape, instance, band set) key, and the ledger of launched and
+    checked keys. The counts are reset by ``reset``; the ledger spans the
+    process."""
 
     name = ""
     # the field dtypes the kernel has an instance for, and the ctypes
@@ -263,29 +266,37 @@ class _Kernel:
         self.reset()
 
     def reset(self) -> None:
-        self.launches_by_dtype = dict.fromkeys(_DTYPE_SUFFIX.values(), 0)
+        self.launches_by_key = {}
 
     @property
     def launches(self) -> int:
         """The launches of all instances."""
-        return sum(self.launches_by_dtype.values())
+        return sum(self.launches_by_key.values())
+
+    @property
+    def launches_by_dtype(self) -> dict:
+        """The launches by instance suffix."""
+        out = dict.fromkeys(_DTYPE_SUFFIX.values(), 0)
+        for (_, sfx, _), n in self.launches_by_key.items():
+            out[sfx] += n
+        return out
 
     def _launch(self, dtype, key, *args) -> None:
         """Launch the ``dtype`` instance with ``args``; ``key`` is the
         (shape, band set) pair the ledger records with the instance."""
         sfx = _DTYPE_SUFFIX[dtype]
         _check_cuda(self.name, self._entry(sfx)(*args))
-        self.launches_by_dtype[sfx] += 1
-        self.last_key = (key[0], sfx, key[1])
-        self.launched.add(self.last_key)
+        k = self.last_key = (key[0], sfx, key[1])
+        self.launched.add(k)
+        self.launches_by_key[k] = self.launches_by_key.get(k, 0) + 1
 
     def _launch_entry(self, go, *args) -> None:
         """``_launch`` with the entry point, suffix and ledger key looked
         up once (``go``: a ``HaloLaunch``)."""
         _check_cuda(self.name, go.entry(*args))
-        self.launches_by_dtype[go.sfx] += 1
-        self.last_key = go.ledger_key
-        self.launched.add(go.ledger_key)
+        k = self.last_key = go.ledger_key
+        self.launched.add(k)
+        self.launches_by_key[k] = self.launches_by_key.get(k, 0) + 1
 
     def _entry(self, sfx):
         """The C entry point of instance ``sfx``, with its argument
@@ -1867,5 +1878,11 @@ def reset_launch_counts() -> None:
 
 def launch_counts(kernels=KERNELS) -> dict:
     """The launches of ``kernels`` since their last reset, by instance:
-    ``"<name>_<f32|f64|bf16>"``."""
+    ``"<name>_<f32|f64|bf16>"`` (the sums of ``launches_by_key``)."""
     return {f"{k.name}_{sfx}": n for k in kernels for sfx, n in k.launches_by_dtype.items()}
+
+
+def launches_by_key(kernels=KERNELS) -> dict:
+    """The launches of ``kernels`` since their last reset by
+    (kernel name, shape, instance, band set)."""
+    return {(k.name, *key): n for k in kernels for key, n in k.launches_by_key.items()}

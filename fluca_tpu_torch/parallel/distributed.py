@@ -25,11 +25,13 @@ from __future__ import annotations
 
 import datetime
 import os
-import time
 from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
+
+from fluca_tpu_torch.utils import profiling
+from fluca_tpu_torch.utils.profiling import span
 
 _BACKENDS = ("nccl", "gloo")
 # this process's device, set by initialize_distributed, and the transport
@@ -174,20 +176,18 @@ def process_info() -> dict:
 @dataclass
 class TransportStats:
     """What crossed between ranks since the last ``reset``: the exchanges
-    (batches of planes), the bytes this rank sent in them and their host
-    time (staging copies included); the sums (a max over the ranks counts
-    as one) and the gathers, the bytes this rank gave to them (its own
-    part, once), and the host time of the collectives (barriers
-    included)."""
+    (batches of planes) and the bytes this rank sent in them; the sums (a
+    max over the ranks counts as one) and the gathers, and the bytes this
+    rank gave to them (its own part, once). Their host time is in the
+    spans ``exchange`` (staging copies included) and ``collective``
+    (barriers included) of ``utils.profiling``."""
 
     exchanges: int = 0
     exchange_bytes: int = 0
-    exchange_s: float = 0.0
     sums: int = 0
     sum_bytes: int = 0
     gathers: int = 0
     gather_bytes: int = 0
-    collective_s: float = 0.0
 
     def reset(self) -> None:
         self.__init__()
@@ -234,40 +234,37 @@ class Transport:
         under nccl, which ignores tags). Under nccl the transfer runs on
         NCCL's own stream; ``wait`` returns the received tensors on the
         device, in the order of ``recvs``."""
-        t0 = time.perf_counter()
-        ops, out = [], []
-        for peer, t, tag in sends:
-            t = t.contiguous()
-            if self.staged:
-                h = self._host(("send", peer, tag), t.shape, t.dtype)
-                h.copy_(t)
-                t = h
-            ops.append(dist.P2POp(dist.isend, t, peer, self.group, tag))
-            self.stats.exchange_bytes += t.numel() * t.element_size()
-        for peer, shape, dtype, tag in recvs:
-            if self.staged:
-                buf = self._host(("recv", peer, tag), shape, dtype)
-            else:
-                buf = torch.empty(shape, dtype=dtype, device=self.device)
-            ops.append(dist.P2POp(dist.irecv, buf, peer, self.group, tag))
-            out.append(buf)
-        works = dist.batch_isend_irecv(ops) if ops else []
-        self.stats.exchange_s += time.perf_counter() - t0
+        with span("exchange"):
+            ops, out = [], []
+            for peer, t, tag in sends:
+                t = t.contiguous()
+                if self.staged:
+                    h = self._host(("send", peer, tag), t.shape, t.dtype)
+                    t = profiling.read(t, "exchange.stage", h.copy_)
+                ops.append(dist.P2POp(dist.isend, t, peer, self.group, tag))
+                self.stats.exchange_bytes += t.numel() * t.element_size()
+            for peer, shape, dtype, tag in recvs:
+                if self.staged:
+                    buf = self._host(("recv", peer, tag), shape, dtype)
+                else:
+                    buf = torch.empty(shape, dtype=dtype, device=self.device)
+                ops.append(dist.P2POp(dist.irecv, buf, peer, self.group, tag))
+                out.append(buf)
+            works = dist.batch_isend_irecv(ops) if ops else []
         return PendingExchange(self, works, out)
 
     def all_gather(self, x) -> list:
         """Every rank's ``x`` (one shape on all ranks), in rank order, on
         the device."""
-        t0 = time.perf_counter()
-        shape = x.shape
-        x = x.reshape(-1).contiguous()
-        src = x.cpu() if self.staged else x
-        parts = [torch.empty_like(src) for _ in range(self.size)]
-        dist.all_gather(parts, src, group=self.group)
-        parts = [p.to(self.device).reshape(shape) for p in parts]
+        with span("collective"):
+            shape = x.shape
+            x = x.reshape(-1).contiguous()
+            src = profiling.read(x, "collective.stage", torch.Tensor.cpu) if self.staged else x
+            parts = [torch.empty_like(src) for _ in range(self.size)]
+            dist.all_gather(parts, src, group=self.group)
+            parts = [p.to(self.device).reshape(shape) for p in parts]
         self.stats.gathers += 1
         self.stats.gather_bytes += x.numel() * x.element_size()
-        self.stats.collective_s += time.perf_counter() - t0
         return parts
 
     def _reduce(self, x, op):
@@ -296,9 +293,8 @@ class Transport:
     def barrier(self) -> None:
         """Wait until every rank of the group is here (the counterpart of
         ``multihost_utils.sync_global_devices``)."""
-        t0 = time.perf_counter()
-        dist.barrier(group=self.group)
-        self.stats.collective_s += time.perf_counter() - t0
+        with span("collective"):
+            dist.barrier(group=self.group)
 
 
 class PendingExchange:
@@ -308,14 +304,12 @@ class PendingExchange:
         self.transport, self.works, self.out = transport, works, out
 
     def wait(self) -> list:
-        t0 = time.perf_counter()
-        for w in self.works:
-            w.wait()
-        out = self.out
-        if self.transport.staged:
-            # a blocking copy: the pinned buffers take the next exchange's planes
-            out = [h.to(self.transport.device) for h in out]
-        st = self.transport.stats
-        st.exchanges += 1
-        st.exchange_s += time.perf_counter() - t0
+        with span("exchange"):
+            for w in self.works:
+                w.wait()
+            out = self.out
+            if self.transport.staged:
+                # a blocking copy: the pinned buffers take the next exchange's planes
+                out = [h.to(self.transport.device) for h in out]
+        self.transport.stats.exchanges += 1
         return out

@@ -9,7 +9,9 @@ Each solver is one loop. With ``rtol=None`` it runs exactly
 fixed-budget production presets: no device synchronisation inside a
 step). With a tolerance it checks ``rnorm > max(rtol * |b|, atol)``
 before each iteration, one host read per iteration. The two forms make
-the same iterates until the tolerance is met.
+the same iterates until the tolerance is met. Every host read goes
+through ``profiling.read`` under its site (``<solver>.<value>``), which
+counts it while tracing is on.
 
 All solvers accept:
   dot     : the tree inner product (``tree_dot``; under a rank-held grid
@@ -33,6 +35,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
+
+from fluca_tpu_torch.utils import profiling
 
 
 # ----------------------------------------------------------------------
@@ -127,12 +131,12 @@ def _norm(dot, a):
     return torch.sqrt(dot(a, a))
 
 
-def _tolerance(b, rtol, atol, dot) -> float | None:
-    """max(rtol * |b|, atol) on the host, or None for a fixed
-    budget."""
+def _tolerance(b, rtol, atol, dot, solver) -> float | None:
+    """max(rtol * |b|, atol) on the host (a host read at the site
+    ``<solver>.tol``), or None for a fixed budget."""
     if rtol is None:
         return None
-    return max(rtol * float(_norm(dot, b)), atol)
+    return max(rtol * profiling.read(_norm(dot, b), f"{solver}.tol"), atol)
 
 
 def _finish(x, k, rnorm, tol):
@@ -167,13 +171,13 @@ def cg(
     else:
         x = x0
         r = P(tree_sub(b, A(x0)))
-    tol = _tolerance(b, rtol, atol, dot)
+    tol = _tolerance(b, rtol, atol, dot, "cg")
     z = P(M(r))
     p = z
     rz = dot(r, z)
     rnorm = None if tol is None else _norm(dot, r)
     k = 0
-    while k < maxiter and (tol is None or float(rnorm) > tol):
+    while k < maxiter and (tol is None or profiling.read(rnorm, "cg.rnorm") > tol):
         Ap = P(A(p))
         alpha = rz / _nz(dot(p, Ap))
         x = tree_axpy(alpha, p, x)
@@ -213,7 +217,7 @@ def bicgstab(
     else:
         x = x0
         r = tree_sub(b, A(x0))
-    tol = _tolerance(b, rtol, atol, dot)
+    tol = _tolerance(b, rtol, atol, dot, "bicgstab")
     rhat = r
     p = tree_zeros_like(b)
     v = tree_zeros_like(b)
@@ -222,7 +226,7 @@ def bicgstab(
     rho = alpha = omega = one
     rnorm = None if tol is None else _norm(dot, r)
     k = 0
-    while k < maxiter and (tol is None or float(rnorm) > tol):
+    while k < maxiter and (tol is None or profiling.read(rnorm, "bicgstab.rnorm") > tol):
         rho_new = dot(rhat, r)
         beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
         p = tree_axpy(beta, tree_axpy(-omega, v, p), r)
@@ -314,16 +318,16 @@ def fgmres(
     residual estimate |g[nit]|, as in the reference."""
     M = M or _identity
     x = tree_zeros_like(b) if x0 is None else x0
-    tol = _tolerance(b, rtol, atol, dot)
+    tol = _tolerance(b, rtol, atol, dot, "fgmres")
     m = restart
     max_cycles = (maxiter + m - 1) // m
-    rnorm = float(_norm(dot, tree_sub(b, A(x))))
+    rnorm = profiling.read(_norm(dot, tree_sub(b, A(x))), "fgmres.rnorm")
     its = 0
     cyc = 0
     while cyc < max_cycles and rnorm > tol:
         r = tree_sub(b, A(x))
         beta_t = _norm(dot, r)
-        beta = float(beta_t)
+        beta = profiling.read(beta_t, "fgmres.beta")
         V = [tree_map(lambda a: a / _nz(beta_t), r)]
         Z = []
         H = []  # columns, host floats
@@ -342,7 +346,8 @@ def fgmres(
                 hcol_t.append(hij)
             hlast = _norm(dot, w)
             hcol_t.append(hlast)
-            hcol = torch.stack(hcol_t).double().tolist()
+            hcol = profiling.read(torch.stack(hcol_t).double(), "fgmres.hcol",
+                                  torch.Tensor.tolist)
             V.append(tree_map(lambda a: a / _nz(hlast), w))
             Z.append(z)
             # previous Givens rotations on the new column

@@ -52,6 +52,7 @@ from fluca_tpu_torch.mesh.cart import CartMesh
 from fluca_tpu_torch.ns import tables as T_
 from fluca_tpu_torch.ops import cuda_stencil
 from fluca_tpu_torch.ops.banded import compose_axis_stencils
+from fluca_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -349,13 +350,14 @@ class PoissonMG:
         return self.grid.gather(x, lvl.mesh.N, lvl.mesh.periodic)
 
     def _coarse_solve(self, lvl, b):
-        held = lvl.block is not None
-        if held:
-            b = self._gather(lvl, b)
-        pinv = self._coarse_pinv_acc
-        xf = torch.matmul(pinv, b.reshape(-1).to(pinv.dtype))
-        x = xf.to(b.dtype).reshape(lvl.mesh.cell_shape)
-        return lvl.block.cut(x).contiguous() if held else x
+        with span("mg.coarse"):
+            held = lvl.block is not None
+            if held:
+                b = self._gather(lvl, b)
+            pinv = self._coarse_pinv_acc
+            xf = torch.matmul(pinv, b.reshape(-1).to(pinv.dtype))
+            x = xf.to(b.dtype).reshape(lvl.mesh.cell_shape)
+            return lvl.block.cut(x).contiguous() if held else x
 
     def _vcycle(self, li, x, b):
         lvl = self.levels[li]
@@ -385,5 +387,7 @@ class PoissonMG:
         return x
 
     def precondition(self, r):
-        """One V-cycle as preconditioner: approximately Shat^{-1} r."""
-        return self._vcycle(0, torch.zeros_like(r), r)
+        """One V-cycle as preconditioner: approximately Shat^{-1} r (the
+        span ``mg.vcycle``, its coarsest solve ``mg.coarse``)."""
+        with span("mg.vcycle"):
+            return self._vcycle(0, torch.zeros_like(r), r)

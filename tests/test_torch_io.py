@@ -525,14 +525,30 @@ def test_torch_debug_like_reference():
 
 
 def test_torch_trace_writes(tmp_path):
+    """With tracing on, a torch.profiler trace of a step holds the
+    program's spans as ranges on the profiler's clock: nested as the log
+    has them, each around the torch operations it ran."""
     ns = t_cavity3d(N=(8, 8, 8), dtype=F64, device="cpu")
-    profiling.start_trace(str(tmp_path))
-    with pytest.raises(RuntimeError, match="already"):
-        profiling.start_trace(str(tmp_path))
     ns.step()
-    prof = profiling.stop_trace()
-    with pytest.raises(RuntimeError, match="no trace"):
-        profiling.stop_trace()
-    assert any(e.key.startswith("aten::") for e in prof.key_averages())
-    assert any(name.endswith(".json") or name.endswith(".json.gz")
-               for name in os.listdir(tmp_path))
+    with profiling.tracing() as log:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            ns.step()
+    names = set(log.summary())
+    ranges = {}
+    for e in prof.events():
+        if e.name in names:
+            ranges.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+    assert set(ranges) == names
+    assert {k: len(v) for k, v in ranges.items()} == {
+        k: s["count"] for k, s in log.summary().items()}
+    (step,) = ranges["NS_Step"]
+    for lo, hi in ranges["step.outer"] + ranges["mg.vcycle"]:
+        assert step[0] <= lo <= hi <= step[1]
+    (outer,) = ranges["step.outer"]
+    inside = [e for e in prof.events() if e.name.startswith("aten::")
+              and outer[0] <= e.time_range.start and e.time_range.end <= outer[1]]
+    assert inside
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    spans = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "user_annotation"}
+    assert names <= spans

@@ -1,6 +1,6 @@
 """fluca_tpu_torch's host utilities against fluca_tpu's: the options
-database, the registry, the dtype switch, the event log and the viewer
-spec parser."""
+database, the registry, the dtype switch, the span log's table and the
+viewer spec parser."""
 
 import pytest
 import torch
@@ -11,7 +11,7 @@ from fluca_tpu_torch.io.viewer import create_viewer_from_options
 from fluca_tpu_torch.io.viewer import parse_viewer_spec as t_parse
 from fluca_tpu_torch.utils import config
 from fluca_tpu_torch.utils.options import Options as TOptions
-from fluca_tpu_torch.utils.profiling import EventLog
+from fluca_tpu_torch.utils import profiling
 from fluca_tpu_torch.utils.registry import Registry
 
 from torch_threads import one_thread_per_worker  # noqa: F401 (autouse fixture)
@@ -52,12 +52,19 @@ def test_default_dtype_switch():
 
 
 def test_event_log():
-    log = EventLog()
-    for _ in range(3):
-        with log.event("NS_Step"):
-            pass
-    assert log.counts["NS_Step"] == 3
-    assert "NS_Step" in log.view() and "Count" in log.view()
+    """The -log_view table: a row per span name (count, ms, self ms, ms
+    per call) and per counter."""
+    with profiling.tracing() as log:
+        for _ in range(3):
+            with profiling.span("NS_Step"):
+                with profiling.span("step.outer"):
+                    profiling.count("iters.outer", 2)
+    lines = log.view().splitlines()
+    assert lines[0].split() == ["Span", "Count", "Time", "(ms)", "Self", "(ms)", "Avg", "(ms)"]
+    rows = {line.split()[0]: line.split()[1:] for line in lines[1:]}
+    assert rows["NS_Step"][0] == "3" and rows["step.outer"][0] == "3"
+    assert float(rows["NS_Step"][1]) >= float(rows["NS_Step"][2])
+    assert rows["Counter"] == ["Count"] and rows["iters.outer"] == ["6"]
 
 
 @pytest.mark.parametrize("spec", ["", "ascii", "ascii:out.txt",
