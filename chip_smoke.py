@@ -1645,9 +1645,8 @@ def phase_slice3d(smi, entries):
     if chan.step_index != 11 or not bool(chan.last_diag["converged"]):
         raise AssertionError(f"bf16 channel 128^3 stopped at step {chan.step_index}")
     assert_finite(chan, "the bf16-preconditioned 128^3 channel after 11 steps")
-    # the bf16 pre branch keeps the unfused ABF stages, as the reference's
-    require_launches(launches_bf16, ("poisson3d_bf16", "momentum3d_bf16",
-                                     "chain3d_coupled"),
+    # the bf16 pre branch runs all three chain stages
+    require_launches(launches_bf16, ("poisson3d_bf16", "momentum3d_bf16", *CHAIN_NAMES),
                      "the bf16-preconditioned 128^3 channel")
     retention = float(chan.state["v"][0].abs().mean()) / u0
     print(f"[slice3d-bf16] channel 128^3 dt 2e-3 f32 production, bf16 "
@@ -1762,8 +1761,8 @@ def phase_channel512_bf16(smi, entries, profile=False):
     retention = float(ns.state["v"][0].abs().mean()) / u0
     early_rnorm = float(ns.last_diag["ksp_rnorm"])
     assert_finite(ns, "the bf16-momentum 512x256x256 channel after 11 steps")
-    # the bf16 pre branch keeps the unfused ABF stages, as the reference's
-    require_launches(launches, ("momentum3d_bf16", "poisson3d", "chain3d_coupled"),
+    # the bf16 pre branch runs all three chain stages
+    require_launches(launches, ("momentum3d_bf16", "poisson3d", *CHAIN_NAMES),
                      "the bf16-momentum 512x256x256 channel")
     print(f"[channel512-bf16] 512x256x256 stretch_y 2.0 dt 5e-5 f32 production(2, 6, "
           f"8), Jacobi momentum, bf16 preconditioner (mom): setup {setup_s:.2f} s, "
@@ -3990,10 +3989,9 @@ def phase_probes(entries):
     launches = {k: n for k, n in cuda_stencil.launch_counts(
         (*cuda_stencil.KERNELS, *probes.KERNELS)).items() if n}
     del ns128
-    # the profile's preconditioner keeps the unfused ABF stages (its bf16
-    # branch), so of the chain only the coupled stage runs
+    # the profile's bf16 preconditioner runs all three chain stages
     for name in (*PROBE_REPLACES, "poisson2d", "poisson3d", "poisson2d_halo", "momentum3d",
-                 "chain3d_coupled"):
+                 *CHAIN_NAMES):
         if not launches.get(f"{name}_f32"):
             raise AssertionError(f"kernel {name} was not launched by the bench and probe path")
     for label, r in (("spmv_roofline 4096^2", r2), ("poisson3d_roofline 256^3", r3)):

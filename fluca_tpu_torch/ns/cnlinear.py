@@ -39,10 +39,12 @@ G/T/R/D epilogue, and the ABF pre and post stages) run through
 ``_stages``, picked from the mesh: in 3-D the fused chain kernel
 (``ops/chain3d.py`` ``Chain3D``), in 2-D and under a device grid of more
 than one shard (``set_device_grid``) the banded operators
-(``UnfusedChain``). The ABF stages take the chain only where
-the reference's ``ops._chain3d`` branch runs (cnlinear.py:726-736): with
-``schur_ainv`` and ``upper_ainv`` both "id", outside the bf16 ``pre``
-branch.
+(``UnfusedChain``). The ABF stages take the chain with ``schur_ainv``
+and ``upper_ainv`` both "id", as the reference's ``ops._chain3d``
+branch does (cnlinear.py:726-736), and in the reduced-precision ``pre``
+branch too, whose stages take and return the solver dtype. There the
+port departs from fluca_tpu, whose ``pre`` branch keeps the banded
+chains even with its chain kernel on (cnlinear.py:697-722).
 """
 
 from __future__ import annotations
@@ -173,9 +175,15 @@ class CNLinearConfig:
 
 class UnfusedChain:
     """The chain stages on the banded operators of ``ops``, one sweep
-    per operator: the stages of the 2-D step, of the ``diag``/``rowsum``
-    ainv variants and of the bf16 ``pre`` branch, and the A/B witness of
-    the fused chain. Same methods as ``Chain3D``."""
+    per operator: the stages of the 2-D step, of a device grid of more
+    than one shard or a rank-held grid, and of the ``diag``/``rowsum``
+    ainv variants, and the A/B witness of the fused chain. Same methods
+    as ``Chain3D``.
+
+    In 3-D on one device the reduced-precision ``pre`` branch runs the
+    fused chain, where fluca_tpu's keeps these banded stages even with
+    its chain kernel on (fluca_tpu/ns/cnlinear.py:697-722): its stages
+    see solver-dtype tensors either way."""
 
     def __init__(self, ops: NSOperators):
         self.ops = ops
@@ -572,37 +580,29 @@ class CNLinearSolver:
         ``abf.momentum``, ``abf.pre``, ``abf.schur`` and ``abf.post``.
 
         ``pre`` (from _precond_ctx): the inner solves in reduced
-        precision; the T/D/G/Gst chains and the result stay in the
-        solver dtype (reference cnlinear.py:685-724)."""
+        precision, for both ainv "id"; the chain stages and the result
+        stay in the solver dtype (reference cnlinear.py:685-724)."""
         ops = self.ops
         ainv1 = self._ainv_diag(self.cfg.schur_ainv, Acoeffs, diagA)
         ainv2 = self._ainv_diag(self.cfg.upper_ainv, Acoeffs, diagA)
-        if pre is not None and ainv1 is None and ainv2 is None:
-            # the unfused stages, as the reference's bf16 branch has them
-            pdt = pre["dtype"]
-            with span("abf.momentum"):
-                vstar = self._solve_momentum(
-                    tuple(x.to(pdt) for x in r["v"]), pre["Acoeffs"], pre["diagA"]
-                )
-                vstar = tuple(x.to(self.dtype) for x in vstar)
-            with span("abf.pre"):
-                Ustar, rp = self._unfused.abf_pre(vstar, r["U"], r["p"])
-            with span("abf.schur"):
-                if pre["mg"] is None:
-                    p = self._solve_schur(rp)
-                else:
-                    p = self._solve_schur(rp.to(pdt), mg=pre["mg"]).to(self.dtype)
-            with span("abf.post"):
-                v, U = self._unfused.abf_post(vstar, Ustar, p)
-            return {"v": v, "U": U, "p": p}
-        stages = self._stages if ainv1 is None and ainv2 is None else self._unfused
+        chained = ainv1 is None and ainv2 is None
+        stages = self._stages if chained else self._unfused
+        pre = pre if chained else None
         with span("abf.momentum"):
-            vstar = self._solve_momentum(r["v"], Acoeffs, diagA)
+            if pre is None:
+                vstar = self._solve_momentum(r["v"], Acoeffs, diagA)
+            else:
+                vstar = self._solve_momentum(tuple(x.to(pre["dtype"]) for x in r["v"]),
+                                             pre["Acoeffs"], pre["diagA"])
+                vstar = tuple(x.to(self.dtype) for x in vstar)
         # U* = rU + T v*, and the rhs for Schur: contrhs - D U*
         with span("abf.pre"):
             Ustar, rp = stages.abf_pre(vstar, r["U"], r["p"])
         with span("abf.schur"):
-            p = self._solve_schur(rp, ainv1=ainv1)
+            if pre is None or pre["mg"] is None:
+                p = self._solve_schur(rp, ainv1=ainv1)
+            else:
+                p = self._solve_schur(rp.to(pre["dtype"]), mg=pre["mg"]).to(self.dtype)
         with span("abf.post"):
             if ainv2 is None:
                 v, U = stages.abf_post(vstar, Ustar, p)

@@ -34,7 +34,7 @@ coefficient arrays and arithmetic in ``coef_dtype`` (float32), one
 rounding at the store, as the TPU kernels' bf16 instances
 (``pallas_stencil._coef_dtype``). The chain runs in the solver dtype
 only, float32 or float64: the bf16 branch of the ABF preconditioner
-never calls it (fluca_tpu/ns/cnlinear.py:685-724).
+calls it on v* and p cast back to the solver dtype.
 
 Each kernel has a plain PyTorch version of the same function beside
 it, built from ``shifted`` on the same coefficient arrays, with the

@@ -404,14 +404,16 @@ def test_stage_choice():
         # U update is the ainv branch's own, on T, G and R
         post = flat_ if upper == "id" else set()
         assert got == {"coupled": chain, "abf_pre": flat_, "abf_post": post}, schur
-    cfg = TConfig.production()
-    cfg.precond_dtype = "bfloat16"
-    assert spied_step(cavity3d(), cfg) == {"coupled": chain, "abf_pre": flat_,
-                                           "abf_post": flat_}
-    ns2 = t_cavity2d(N=8, Re=100.0, dt=0.01, device="cpu", dtype=F64)
-    assert ns2.impl._stages is ns2.impl._unfused
-    assert spied_step(ns2, TConfig.production()) == dict.fromkeys(
-        ("coupled", "abf_pre", "abf_post"), flat_)
+    # the bf16 pre branch runs the chain in 3-D and the banded stages in 2-D
+    bf16 = TConfig.production()
+    bf16.precond_dtype = "bfloat16"
+    assert spied_step(cavity3d(), bf16) == dict.fromkeys(
+        ("coupled", "abf_pre", "abf_post"), chain)
+    for cfg in (TConfig.production(), bf16):
+        ns2 = t_cavity2d(N=8, Re=100.0, dt=0.01, device="cpu", dtype=F64)
+        assert ns2.impl._stages is ns2.impl._unfused
+        assert spied_step(ns2, cfg) == dict.fromkeys(
+            ("coupled", "abf_pre", "abf_post"), flat_), cfg.precond_dtype
 
 
 # ----------------------------------------------------------------------
