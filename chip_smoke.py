@@ -84,7 +84,10 @@ Phases:
      memory, and its checkpoint restart at max abs 0; the float32 cylinder
      restarted mid-run and run twice, at max abs 0; two planted faults (a
      checkpoint byte flipped, one marker's spread weight zeroed) that must
-     be caught;
+     be caught; the benchmark's 4096x2048 cylinder (float32, from uniform
+     flow): the 2-D kernels on every level and mode and on the step's
+     coefficients, then one step, so that the ledger holds every key its
+     cell launches;
  9c. tolerance: the reference's stopping rule (FGMRES rtol 1e-5 on the
      unpreconditioned residual) on tolerance.py's first row, the 128^3
      wall-clustered channel at dt 2e-3, float32: 3 steps cold and 3
@@ -1842,6 +1845,11 @@ CD48_REF, CD48_TOL, CD_DRIFT = 1.4680, 0.02, 5e-3
 # uniform flow.
 SPHERE128 = dict(N=(128, 128, 128), domain=(4.0, 4.0, 4.0), center=(1.5, 2.0, 2.0),
                  diameter=0.5, Re=100.0, dt=8e-3, retract=0.5, max_steps=10**9)
+# The benchmark's cylinder4096 (benchmark/configs/cylinder4096.json): 4096 x
+# 2048 on 64 x 32, D 1 at (16, 16), Re 100, dt 0.00625, float32, the
+# solver of its cell (production(3, 8, 8)); here from uniform flow.
+CYLINDER4096 = dict(N=(4096, 2048), domain=(64.0, 32.0), center=(16.0, 16.0), diameter=1.0,
+                    Re=100.0, dt=0.00625, max_steps=10**9)
 # The backward-facing step (examples/backward_step.py's grid): 512x64 on
 # 10 x 1, Re 100, dt 0.01, the default solver, from rest; a step and
 # advance(20) in float64 and float32, gated as tests/test_bfs.py gates its
@@ -2036,6 +2044,24 @@ def sphere128(smi, entries, runs, tmp):
             "markers": int(ibm.markers.X.shape[0])}
 
 
+def cylinder4096(smi, entries, runs):
+    """The benchmark's 2-D cylinder wake at its size, float32: the 2-D
+    kernels in every mode on every multigrid level, and the momentum
+    kernel on the step's coefficients, against their plain versions; then
+    one counted step, whose launch keys phase_ledger finds checked."""
+    torch.cuda.reset_peak_memory_stats()
+    ns, ibm = ibm_solver(setup_cylinder_2d, CYLINDER4096, torch.float32)
+    label = "cylinder 4096x2048 f32"
+    check_solver_stencils(entries, label, ns)
+    wall = counted(label, ns.step, 1, KERNELS_2D, runs)
+    assert_finite(ns, label)
+    mem = torch.cuda.max_memory_allocated()
+    print(f"[ibm] {label} ({ibm.markers.X.shape[0]} markers, "
+          f"{len(ns.impl.mg.levels)} multigrid levels): first step {wall:.2f} s, "
+          f"{sum(runs[label].values()):.0f} stencil launches; peak memory "
+          f"{mem / 2**30:.3f} GiB; {smi}", flush=True)
+
+
 def cylinder_restart(tmp):
     """float32 cylinder from t = 30: advance(20) equals advance(10), save,
     load into a fresh solver, advance(10), at max abs 0; two fresh runs
@@ -2073,7 +2099,7 @@ def cylinder_restart(tmp):
 def phase_ibm(smi, entries):
     """BASELINE #3 and #4 on the card from the committed checkpoints, in
     float64 and float32; the backward-facing step; the 128^3 sphere;
-    restarts, determinism and two planted faults. Returns the runs' launches per step and the 128^3
+    restarts, determinism and two planted faults; the 4096x2048 cylinder. Returns the runs' launches per step and the 128^3
     sphere's figures."""
     t0 = time.perf_counter()
     runs = {}
@@ -2085,6 +2111,7 @@ def phase_ibm(smi, entries):
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         big = sphere128(smi, entries, runs, tmp)
         cylinder_restart(tmp)
+    cylinder4096(smi, entries, runs)
     print(f"[ibm] all IBM runs passed in {time.perf_counter() - t0:.1f} s", flush=True)
     return runs, big
 

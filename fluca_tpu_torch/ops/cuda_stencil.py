@@ -48,6 +48,9 @@ sums: ``launches``, and by instance ``launches_by_dtype``;
 kernel's name), and keeps a ledger: the set of keys it launched at
 (``launched``) and the keys a comparison with the plain version covered
 (``checked``, marked by ``mark_checked`` after such a comparison).
+While tracing is on (``utils/profiling.py``) each launch is also
+counted by kernel, Poisson mode, ledger shape and instance
+(``profiling.count_launches``).
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ import torch
 
 from fluca_tpu_torch.ops.banded import broadcast_1d, shifted
 from fluca_tpu_torch.parallel.mesh import DeviceGrid
+from fluca_tpu_torch.utils import profiling
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("poisson2d.cu", "momentum2d.cu", "poisson3d.cu", "momentum3d.cu",
@@ -281,22 +285,26 @@ class _Kernel:
             out[sfx] += n
         return out
 
-    def _launch(self, dtype, key, *args) -> None:
+    def _launch(self, dtype, key, *args, mode=None) -> None:
         """Launch the ``dtype`` instance with ``args``; ``key`` is the
-        (shape, band set) pair the ledger records with the instance."""
+        (shape, band set) pair the ledger records with the instance, and
+        ``mode`` a Poisson kernel's mode, counted by the tracing
+        (``profiling.count_launches``)."""
         sfx = _DTYPE_SUFFIX[dtype]
         _check_cuda(self.name, self._entry(sfx)(*args))
         k = self.last_key = (key[0], sfx, key[1])
         self.launched.add(k)
         self.launches_by_key[k] = self.launches_by_key.get(k, 0) + 1
+        profiling.count_launches(self.name, mode, key[0], sfx)
 
-    def _launch_entry(self, go, *args) -> None:
+    def _launch_entry(self, go, *args, mode=None) -> None:
         """``_launch`` with the entry point, suffix and ledger key looked
         up once (``go``: a ``HaloLaunch``)."""
         _check_cuda(self.name, go.entry(*args))
         k = self.last_key = go.ledger_key
         self.launched.add(k)
         self.launches_by_key[k] = self.launches_by_key.get(k, 0) + 1
+        profiling.count_launches(self.name, mode, k[0], k[1])
 
     def _entry(self, sfx):
         """The C entry point of instance ``sfx``, with its argument
@@ -490,7 +498,7 @@ class Poisson2DKernel(_Kernel):
                      _PTRS8(*fp[:3], c.rx.data_ptr(), c.ry.data_ptr(), c.cy.data_ptr(),
                             c.cyb.data_ptr(), fp[3]),
                      N0, N1, int(c.periodic[0]), int(c.periodic[1]), float(omega),
-                     plan.as_c(), _stream_ptr(p))
+                     plan.as_c(), _stream_ptr(p), mode=mode)
         return out
 
 
@@ -912,7 +920,7 @@ class Poisson3DKernel(_Kernel):
             p, b, w, c.a0, c.c1, c.c2, c.h0, c.h1, c.h2, out)]
         self._launch(p.dtype, (tuple(p.shape), c.periodic), POISSON_MODES[mode],
                      (_VP * 10)(*ptrs), *p.shape, *(int(x) for x in c.periodic),
-                     float(omega), plan.as_c(), _stream_ptr(p))
+                     float(omega), plan.as_c(), _stream_ptr(p), mode=mode)
         return out
 
 
@@ -1565,7 +1573,8 @@ class _PoissonHaloKernel(_Kernel):
             ptrs[:3] = [x if x is None else x + cell for x in cells[:3]]
             ptrs[k] = cells[3] + cell
             ptrs[k + 1:] = _edge_ptrs(ebases, eoffs)
-            self._launch_entry(go, mode, ptrs, go.geom, call.omega, plan, stream)
+            self._launch_entry(go, mode, ptrs, go.geom, call.omega, plan, stream,
+                               mode=call.mode)
         return out
 
 

@@ -28,7 +28,13 @@ Span names (``NS_Step`` the root of each step): ``NS_SetUp``,
 ``abf.schur`` (``mg.vcycle``, ``mg.coarse``) and ``abf.post``),
 ``step.project``, ``host_read``, and on the rank path ``exchange`` and
 ``collective``. Counters: ``host_reads`` and ``host_reads.<site>``,
-``iters.outer``, ``iters.momentum``, ``iters.schur``.
+``iters.outer``, ``iters.momentum``, ``iters.schur``, and the stencil
+kernels' launches on the card (``count_launches``, at the launch site):
+``launches.<kernel>.<mode>.<shape>.<instance>``, the mode of a Poisson
+kernel (apply, residual, smooth) or ``-``, the shape of the launch's
+ledger key with its extents joined by ``x`` (a halo launch's global,
+block and grid shapes joined by ``_``), the instance ``f32``, ``f64`` or
+``bf16``.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch
 
 ROOT = "NS_Step"
 HOST_READ = "host_read"
+LAUNCHES = "launches"
 
 # the running log; None while tracing is off
 _log = None
@@ -155,6 +162,26 @@ def count(name: str, n: int = 1) -> None:
     log = _log
     if log is not None:
         log.counters[name] += n
+
+
+def _extents(shape) -> str:
+    if shape and isinstance(shape[0], tuple):
+        return "_".join(map(_extents, shape))
+    return "x".join(map(str, shape))
+
+
+def launch_counter(kernel: str, mode, shape, instance: str) -> str:
+    """The counter name of a stencil kernel's launches (``count_launches``)."""
+    return f"{LAUNCHES}.{kernel}.{mode or '-'}.{_extents(shape)}.{instance}"
+
+
+def count_launches(kernel: str, mode, shape, instance: str) -> None:
+    """Count one launch of ``kernel`` (in ``mode``, None for a kernel
+    without one) at ``shape`` in ``instance`` while tracing is on; the
+    name is built only then."""
+    log = _log
+    if log is not None:
+        log.counters[launch_counter(kernel, mode, shape, instance)] += 1
 
 
 def read(x, site: str, convert=float):

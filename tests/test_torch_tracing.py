@@ -105,7 +105,8 @@ def test_host_reads_under_a_fixed_budget_are_the_converged_check():
         for _ in range(3):
             ns.step()
     assert log.steps == 3
-    assert dict(log.counters) == {
+    # the counters besides the stencil launches (test_launch_counter_*)
+    assert {k: v for k, v in log.counters.items() if k not in launches(log.counters)} == {
         "host_reads": 3, "host_reads.converged": 3,
         "iters.outer": 6, "iters.momentum": 6 * 6, "iters.schur": 6 * 8}
     s = log.summary()
@@ -192,3 +193,165 @@ def test_log_view_prints_every_span_and_counter(capsys):
                  "iters.momentum", "iters.schur"):
         assert len(rows[name]) == 1 and int(rows[name][0]) > 0, name
     assert int(rows["host_reads"][0]) == int(rows["host_read"][0])
+
+
+def launches(counters):
+    return {k: v for k, v in counters.items() if k.startswith(profiling.LAUNCHES + ".")}
+
+
+# the wrapper methods a step calls, with the mode (None: the kernel has
+# none), the ledger shape and the dtype of a call's arguments
+WRAPPERS = (
+    (cuda_stencil.Poisson2DKernel, "__call__", lambda a: a[0], lambda a: tuple(a[1].shape),
+     lambda a: a[1].dtype),
+    (cuda_stencil.Momentum2DKernel, "__call__", lambda a: None, lambda a: tuple(a[1].shape),
+     lambda a: a[1].dtype),
+    (cuda_stencil.Poisson3DKernel, "__call__", lambda a: a[0], lambda a: tuple(a[1].shape),
+     lambda a: a[1].dtype),
+    (cuda_stencil.Momentum3DKernel, "__call__", lambda a: None, lambda a: a[0].shape,
+     lambda a: a[0].b[0].dtype),
+    (cuda_stencil.Chain3DKernel, "__call__", lambda a: None, lambda a: a[0].shape,
+     lambda a: a[0].b[0].dtype),
+    (cuda_stencil._PoissonHaloKernel, "run", lambda a: a[0].mode,
+     lambda a: a[0].layout.key[0], lambda a: a[1].dtype),
+    (cuda_stencil.Momentum2DHaloKernel, "__call__", lambda a: None, lambda a: a[3].key[0],
+     lambda a: a[1].dtype),
+)
+
+
+@pytest.fixture
+def card_launches(monkeypatch):
+    """Each wrapper call also takes its launch branch, as on the card, with
+    a C entry point that does nothing (the fields stay on the CPU), then
+    returns its plain version's result; returns the list of (wrapper,
+    mode, shape, dtype suffix) of the calls."""
+    calls, forced = [], [False]
+    target = cuda_stencil._launch_target
+    monkeypatch.setattr(cuda_stencil, "_launch_target",
+                        lambda name, x: "cuda" if forced[0] else target(name, x))
+    monkeypatch.setattr(cuda_stencil, "_stream_ptr", lambda x: 0)
+    monkeypatch.setattr(cuda_stencil._Kernel, "_entry", lambda self, sfx: lambda *a: 0)
+    monkeypatch.setattr(cuda_stencil.HaloLaunch, "entry", lambda *a: 0, raising=False)
+
+    def wrap(orig, mode_of, shape_of, dtype_of):
+        def call(obj, *a, **k):
+            calls.append((obj.name, mode_of(a), shape_of(a),
+                          cuda_stencil._DTYPE_SUFFIX[dtype_of(a)]))
+            forced[0] = True
+            try:
+                orig(obj, *a, **k)
+            finally:
+                forced[0] = False
+            return orig(obj, *a, **k)
+        return call
+
+    for cls, method, *of in WRAPPERS:
+        monkeypatch.setattr(cls, method, wrap(getattr(cls, method), *of))
+    return calls
+
+
+def counted(calls):
+    out = {}
+    for call in calls:
+        name = profiling.launch_counter(*call)
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def by_ledger_key(counters):
+    """The launch counters summed over the modes, by (kernel, shape,
+    instance): what ``launches_by_key`` holds, without its band sets."""
+    out = {}
+    for name, n in launches(counters).items():
+        _, kernel, _, shape, sfx = name.split(".")
+        out[(kernel, shape, sfx)] = out.get((kernel, shape, sfx), 0) + n
+    return out
+
+
+def ledger_counts():
+    out = {}
+    for (kernel, shape, sfx, _), n in cuda_stencil.launches_by_key().items():
+        key = (kernel, profiling.launch_counter("", None, shape, sfx).split(".")[3], sfx)
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def test_launch_counter_counts_each_2d_call_by_mode(card_launches):
+    from fluca_tpu_torch.models.cylinder import setup_cylinder_2d
+
+    ns, _ = setup_cylinder_2d(N=(64, 32), domain=(4.0, 2.0), center=(1.0, 1.0),
+                              diameter=0.5, max_steps=10**9, dtype=F64, device="cpu")
+    ns.impl.cfg = CNLinearConfig.production(3, 8, 8)
+    ns.step()
+    card_launches.clear()
+    cuda_stencil.reset_launch_counts()
+    with profiling.tracing() as log:
+        ns.step()
+        ns.step()
+    got = launches(log.counters)
+    assert got == counted(card_launches)
+    assert by_ledger_key(got) == ledger_counts()
+    assert {k.split(".")[2] for k in got if ".poisson2d." in k} == {"apply", "residual", "smooth"}
+    assert got["launches.momentum2d.-.64x32.f64"] == 2 * 51
+    # off: the launches happen and nothing is counted anywhere
+    card_launches.clear()
+    cuda_stencil.reset_launch_counts()
+    ns.step()
+    assert card_launches and any(cuda_stencil.launch_counts().values())
+    assert profiling.current() is None
+    with profiling.tracing() as log:
+        pass
+    assert dict(log.counters) == {}
+
+
+def test_launch_counter_counts_each_3d_call_by_mode(card_launches):
+    ns = channel(CNLinearConfig.production(2, 6, 8), N=(16, 16, 8))
+    ns.step()
+    card_launches.clear()
+    cuda_stencil.reset_launch_counts()
+    with profiling.tracing() as log:
+        ns.step()
+    got = launches(log.counters)
+    assert got == counted(card_launches)
+    assert by_ledger_key(got) == ledger_counts()
+    for stage in ("coupled", "pre", "post"):
+        assert got[f"launches.chain3d_{stage}.-.16x16x8.f64"] == 2
+    assert {k.split(".")[2] for k in got if ".poisson3d." in k} >= {"apply", "smooth"}
+    assert {k.split(".")[3] for k in got if ".poisson3d." in k} == {"16x16x8"}
+
+
+def test_launch_counter_counts_nothing_on_the_plain_path():
+    ns = channel(CNLinearConfig.production(2, 6, 8))
+    ns.step()
+    cuda_stencil.reset_launch_counts()
+    with profiling.tracing() as log:
+        ns.step()
+    assert not launches(log.counters) and not any(cuda_stencil.launch_counts().values())
+    assert log.counters["host_reads"] == 1
+
+
+def test_launch_counter_names_and_shard_launches(card_launches):
+    from fluca_tpu_torch.models.cavity import setup_cavity_2d
+
+    assert profiling.launch_counter("poisson2d", "smooth", (4096, 2048), "f32") == (
+        "launches.poisson2d.smooth.4096x2048.f32")
+    assert profiling.launch_counter("momentum3d", None, (8, 4, 4), "bf16") == (
+        "launches.momentum3d.-.8x4x4.bf16")
+    assert profiling.launch_counter("poisson2d_halo", "apply", ((16, 8), (8, 4), (2, 2)),
+                                    "f64") == "launches.poisson2d_halo.apply.16x8_8x4_2x2.f64"
+    profiling.count_launches("poisson3d", "apply", (4, 4, 4), "f32")
+    assert profiling.current() is None
+    # a halo call launches once per shard, each counted at the ledger key
+    ns = setup_cavity_2d(N=16, Re=100.0, dt=0.01, dtype=F64, device="cpu")
+    ns.shard(shape=(2, 2))
+    ns.step()
+    card_launches.clear()
+    cuda_stencil.reset_launch_counts()
+    with profiling.tracing() as log:
+        ns.step()
+    got = launches(log.counters)
+    halo = {k: v for k, v in got.items() if ".poisson2d_halo." in k}
+    calls = [c for c in card_launches if c[0] == "poisson2d_halo"]
+    assert calls and sum(halo.values()) == 4 * len(calls)
+    assert {k.split(".")[3] for k in halo} == {"16x16_8x8_2x2"}
+    assert by_ledger_key(got) == ledger_counts()
